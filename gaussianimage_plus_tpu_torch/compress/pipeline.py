@@ -1,0 +1,154 @@
+"""Codec decode: dequantize integer codes and render them.
+
+Port of the decode half of ``gaussianimage_plus_tpu/compress/pipeline.py``:
+``QuantConfig``, ``QuantizerBundle`` (the quantizer grids; the optimizer
+states belong to the QAT slice), ``Encoding``, ``_decode_attributes``,
+``decompress_wo_ec`` (reference gaussianimage_covariance.py:445-467),
+``prepare_decode``/``decode_frame`` (the bin-once decode) and
+``morton_reorder``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..core.binning import morton_perm
+from ..models.gaussian_image import (GaussianConfig, GaussianParams,
+                                     GaussianState, prepare_render, render,
+                                     render_fast, render_prepared)
+from .quantizers import (HybridQuantParams, LogQuantState, UniformQuantParams,
+                         log_decompress, uniform_decompress)
+from .residual_vq import residual_vq_decode
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    xy_bit: int = 12
+    cov_bit: int = 10
+    color_bit: int = 6
+    xy_quant: str = "lsq"     # lsq | fp16
+    cov_quant: str = "lsq"
+    color_quant: str = "lsq"  # lsq | vq
+    quant_lr: float = 1e-3
+    quant_lr_step: int = 10000
+    quant_lr_gamma: float = 0.5
+    # per-tile capacity of the binned decode render; 0 = the training cap
+    decode_cap: int = 0
+    init_percentile: float = 100.0
+
+
+class QuantizerBundle(NamedTuple):
+    """Quantizer grids a decoder needs. ``color_vq`` holds the residual-VQ
+    codebooks when ``color_quant == 'vq'`` (then ``color`` is unused)."""
+
+    xy: UniformQuantParams
+    cov: HybridQuantParams
+    color: UniformQuantParams
+    color_vq: object = None
+
+
+class Encoding(NamedTuple):
+    """compress_wo_ec output (gaussianimage_covariance.py:442-443)."""
+
+    means: torch.Tensor          # dequantized xy [M, 2]
+    quant_means: torch.Tensor    # integer codes [M, 2] (fp16 values in fp16 mode)
+    quant_cov: torch.Tensor      # integer codes [M, 3]
+    color_codes: torch.Tensor    # integer codes [M, 3] (lsq) or indices [M, L] (vq)
+    log_state: LogQuantState     # frozen log grid for decode
+    active: torch.Tensor         # [M] post-quantization validity
+    num_active: torch.Tensor
+
+
+def _decode_attributes(bundle: QuantizerBundle, enc: Encoding, qcfg: QuantConfig):
+    """Dequantize the integer codes -> (means, cov_elements, colors)."""
+    if qcfg.xy_quant == "fp16":
+        means = enc.quant_means
+    else:
+        means = uniform_decompress(bundle.xy, enc.quant_means)
+    var = log_decompress(enc.log_state, enc.quant_cov[:, ::2])
+    cov_mid = uniform_decompress(bundle.cov.cov, enc.quant_cov[:, 1:2])
+    cov_elements = torch.cat([var[:, 0:1], cov_mid, var[:, 1:2]], dim=1)
+    if qcfg.color_quant == "vq":
+        colors = residual_vq_decode(bundle.color_vq, enc.color_codes)
+    else:
+        colors = uniform_decompress(bundle.color, enc.color_codes)
+    return means, cov_elements, colors
+
+
+def _decoded_state(bundle, enc, bound, qcfg):
+    means, cov, colors = _decode_attributes(bundle, enc, qcfg)
+    state = GaussianState(
+        params=GaussianParams(xyz=means, cov2d=cov, features=colors),
+        active=enc.active, bound=bound, num_active=enc.num_active)
+    return state, dict(cov_override=cov, means_override=means, colors_override=colors)
+
+
+def _binned_config(cfg: GaussianConfig, qcfg: QuantConfig, device) -> GaussianConfig:
+    """The config of the binned decode render.
+
+    Parity decision: as in the JAX package (``pipeline.py:452-460``), the
+    binned branch PINS the binned machinery — the binned kernel (``'pallas'``)
+    on the card, the plain tiled path (``'xla'``) on the CPU — and so replaces
+    ``cfg.raster_backend`` even when the caller set it explicitly (ADVICE r5
+    notes this). The port keeps that behaviour: ``backend='binned'`` then
+    means the same capped function on every device, and the two choices it
+    can make compute that one function."""
+    dcap = qcfg.decode_cap if qcfg.decode_cap > 0 else cfg.tile_cap
+    pinned = "pallas" if torch.device(device).type == "cuda" else "xla"
+    return dataclasses.replace(cfg, tile_cap=min(dcap, cfg.tile_cap),
+                               raster_backend=pinned)
+
+
+def decompress_wo_ec(bundle: QuantizerBundle, enc: Encoding, bound: torch.Tensor,
+                     cfg: GaussianConfig, qcfg: QuantConfig,
+                     backend: Optional[str] = None) -> torch.Tensor:
+    """Dequantize + one render pass -> [H, W, 3] in [0, 1].
+
+    ``backend``: ``'binned'`` (default): membership + per-tile selection +
+    the capped binned render; ``'list'``/``'list_t'``: the cap-free
+    chunk-list render (fastest on a ``morton_reorder``-ed stream).
+    ``'dense'``, ``'sweep'`` and ``'range'`` are not ported yet."""
+    state, over = _decoded_state(bundle, enc, bound, qcfg)
+    backend = backend or "binned"
+    if backend in ("list", "list_t", "dense", "sweep", "range"):
+        sweep = {"dense": False, "sweep": True}.get(backend, backend)
+        return render_fast(state, cfg, sweep=sweep, **over)
+    if backend != "binned":
+        raise ValueError(f"unknown decode backend {backend!r}")
+    return render(state, _binned_config(cfg, qcfg, enc.active.device), **over)
+
+
+def prepare_decode(bundle: QuantizerBundle, enc: Encoding, bound: torch.Tensor,
+                   cfg: GaussianConfig, qcfg: QuantConfig, trim: bool = True):
+    """Bin-once decode: dequantize + project + bin + gather, once per stream.
+    With ``trim`` the per-tile capacity is cut to the largest occupancy,
+    rounded up to 8 — exact, since slots are front-packed."""
+    state, over = _decoded_state(bundle, enc, bound, qcfg)
+    cap = min(qcfg.decode_cap if qcfg.decode_cap > 0 else cfg.tile_cap, cfg.tile_cap)
+    prep = prepare_render(state, cfg, cap=cap, **over)
+    if trim:
+        maxc = int(prep.counts.max())
+        cap2 = max(8, -(-maxc // 8) * 8)
+        if cap2 < prep.raw.shape[1]:
+            prep = prep._replace(raw=prep.raw[:, :cap2].contiguous())
+    return prep
+
+
+def decode_frame(prep, cfg: GaussianConfig) -> torch.Tensor:
+    """Per-frame decode render from a prepared table."""
+    return render_prepared(prep, cfg)
+
+
+def morton_reorder(enc: Encoding, bound: torch.Tensor,
+                   cfg: GaussianConfig) -> Tuple[Encoding, torch.Tensor]:
+    """Reorder the stream by the Morton code of each center's tile, invalid
+    rows last. The render is unchanged (blending is a sum); the chunk-list
+    render visits far fewer chunks on the reordered stream."""
+    perm = morton_perm(enc.means, enc.active, cfg.H, cfg.W, cfg.block_h, cfg.block_w)
+    return (enc._replace(means=enc.means[perm], quant_means=enc.quant_means[perm],
+                         quant_cov=enc.quant_cov[perm],
+                         color_codes=enc.color_codes[perm], active=enc.active[perm]),
+            bound[perm])

@@ -1,0 +1,149 @@
+"""Per-Gaussian 2D projection: conic/radius bounds, tile bbox, culling.
+
+Port of ``gaussianimage_plus_tpu/core/gaussian2d.py`` (forward only:
+``compute_cov2d_bounds``, ``tile_bbox``, ``_project_cov2d_fwd_impl`` and the
+parameterization helpers). Same reference semantics (gsplat
+``helpers.cuh:179-206``, ``foward2d.cu:192-288``): adjugate inverse,
+eigenvalue discriminant floor 0.1, ``ceil(clip_coe * sqrt(eig))`` radii, cull
+on zero determinant, minor radius below ``radius_clip`` or an empty tile
+bbox. Culled Gaussians carry ``valid=False``.
+
+Integer outputs (radii, bbox, ``num_tiles_hit``) equal the JAX package's
+exactly: float->int32 casts saturate as XLA's do (``_to_int32``), and the
+bbox truncates toward zero before clamping, as the reference's C casts do.
+The hand-written VJP (``_project_cov2d_bwd``) belongs to the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Tuple
+
+import torch
+
+# Reference tile size: gsplat/gsplat/cuda/csrc/config.h:1-3 (BLOCK_X=BLOCK_Y=16).
+BLOCK_W = 16
+BLOCK_H = 16
+
+# Reference alpha cutoff 1/255: forward.cu:662 (`alpha < 1.f / 255.f`).
+ALPHA_THRESHOLD = 1.0 / 255.0
+
+# Reference eigenvalue discriminant floor: helpers.cuh:196.
+EIGEN_DISCRIMINANT_FLOOR = 0.1
+
+_I32_MIN, _I32_MAX = -(2 ** 31), 2 ** 31 - 1
+
+
+class Projected(NamedTuple):
+    """Per-Gaussian screen-space quantities (see the JAX ``Projected``)."""
+
+    xys: torch.Tensor            # [N, 2] pixel-space centers
+    conics: torch.Tensor         # [N, 3] inverse covariance (upper triangular)
+    radii: torch.Tensor          # [N] int32 major-axis bounding radius
+    num_tiles_hit: torch.Tensor  # [N] int32 tile bbox area
+    valid: torch.Tensor          # [N] bool — survives all culling tests
+
+
+def _to_int32(x: torch.Tensor) -> torch.Tensor:
+    """float -> int32 with XLA's saturating semantics (NaN -> 0); a plain
+    ``.to(torch.int32)`` is undefined out of range."""
+    x = torch.nan_to_num(x, nan=0.0)
+    big = x >= 2.0 ** 31
+    small = x < -(2.0 ** 31)
+    safe = torch.where(big | small, torch.zeros_like(x), x)
+    out = safe.to(torch.int32)
+    out = torch.where(big, torch.full_like(out, _I32_MAX), out)
+    return torch.where(small, torch.full_like(out, _I32_MIN), out)
+
+
+def tile_bounds_for(H: int, W: int, block_h: int = BLOCK_H,
+                    block_w: int = BLOCK_W) -> Tuple[int, int]:
+    """(tiles_x, tiles_y) grid covering a HxW image."""
+    return (-(-W // block_w), -(-H // block_h))
+
+
+def slv_bound(H: int, W: int, num_points) -> torch.Tensor:
+    """Scalar SLV low-pass variance floor ``min(H*W / (9*pi*N), 300)``."""
+    n = torch.as_tensor(num_points, dtype=torch.float32)
+    return torch.clamp(H * W / (9.0 * math.pi * torch.clamp(n, min=1.0)),
+                       max=300.0)
+
+
+def psd_valid_mask(cov2d: torch.Tensor) -> torch.Tensor:
+    """``Sigma11*Sigma22 - Sigma12^2 > 0 and Sigma11 > 0 and Sigma22 > 0``."""
+    det = cov2d[:, 0] * cov2d[:, 2] - cov2d[:, 1] ** 2
+    return (det > 0) & (cov2d[:, 0] > 0) & (cov2d[:, 2] > 0)
+
+
+def cholesky_to_cov2d(chol: torch.Tensor) -> torch.Tensor:
+    """``(l11^2, l11*l21, l21^2 + l22^2)`` from ``[l11, l21, l22]``."""
+    l11, l21, l22 = chol[:, 0], chol[:, 1], chol[:, 2]
+    return torch.stack([l11 * l11, l11 * l21, l21 * l21 + l22 * l22], dim=-1)
+
+
+def scale_rot_to_cov2d(scales: torch.Tensor, rotation: torch.Tensor) -> torch.Tensor:
+    """``Sigma = (R S)(R S)^T`` from scales [N, 2] and angle [N] (radians)."""
+    c, s = torch.cos(rotation), torch.sin(rotation)
+    sx2 = scales[:, 0] ** 2
+    sy2 = scales[:, 1] ** 2
+    cov_xx = c * c * sx2 + s * s * sy2
+    cov_xy = c * s * (sx2 - sy2)
+    cov_yy = s * s * sx2 + c * c * sy2
+    return torch.stack([cov_xx, cov_xy, cov_yy], dim=-1)
+
+
+def compute_cov2d_bounds(cov2d: torch.Tensor, clip_coe: float = 3.0):
+    """``(conic [N,3], radius [N,2] float (major, minor), det_valid [N])``.
+
+    Same expressions as the JAX function, including the clamp of negative
+    eigenvalues to 0 before the sqrt (culled downstream by the minor-radius
+    test)."""
+    xx, xy, yy = cov2d[:, 0], cov2d[:, 1], cov2d[:, 2]
+    det = xx * yy - xy * xy
+    det_valid = det != 0.0
+    inv_det = torch.where(det_valid, 1.0 / torch.where(det_valid, det, 1.0),
+                          torch.zeros_like(det))
+    conic = torch.stack([yy * inv_det, -xy * inv_det, xx * inv_det], dim=-1)
+
+    b = 0.5 * (xx + yy)
+    disc = torch.sqrt(torch.clamp(b * b - det, min=EIGEN_DISCRIMINANT_FLOOR))
+    v1 = b + disc
+    v2 = b - disc
+    radius_major = torch.ceil(clip_coe * torch.sqrt(torch.clamp(v1, min=0.0)))
+    radius_minor = torch.ceil(clip_coe * torch.sqrt(torch.clamp(v2, min=0.0)))
+    return conic, torch.stack([radius_major, radius_minor], dim=-1), det_valid
+
+
+def tile_bbox(xys: torch.Tensor, radii: torch.Tensor, tile_bounds: Tuple[int, int],
+              block_h: int = BLOCK_H, block_w: int = BLOCK_W):
+    """Inclusive-min / exclusive-max tile bbox (reference helpers.cuh:16-49):
+    truncate toward zero, then clamp to ``[0, bounds]``."""
+    tb_x, tb_y = tile_bounds
+    tile_cx = xys[:, 0] / block_w
+    tile_cy = xys[:, 1] / block_h
+    tile_rx = radii / block_w
+    tile_ry = radii / block_h
+    xmin = torch.clamp(_to_int32(torch.trunc(tile_cx - tile_rx)), 0, tb_x)
+    xmax = torch.clamp(_to_int32(torch.trunc(tile_cx + tile_rx + 1.0)), 0, tb_x)
+    ymin = torch.clamp(_to_int32(torch.trunc(tile_cy - tile_ry)), 0, tb_y)
+    ymax = torch.clamp(_to_int32(torch.trunc(tile_cy + tile_ry + 1.0)), 0, tb_y)
+    return xmin, xmax, ymin, ymax
+
+
+def project_gaussians_2d_covariance(means2d: torch.Tensor, cov2d: torch.Tensor,
+                                    H: int, W: int, clip_coe: float = 3.0,
+                                    radius_clip: float = 1.0) -> Projected:
+    """Forward of the ACTIVE projection path: means already in pixels,
+    covariance passed through directly (``_project_cov2d_fwd_impl``)."""
+    tb = tile_bounds_for(H, W)
+    conic, radius, det_valid = compute_cov2d_bounds(cov2d, clip_coe)
+    valid = det_valid & (radius[:, 1] >= radius_clip)
+    radii = _to_int32(torch.where(valid, radius[:, 0], torch.zeros_like(radius[:, 0])))
+    xmin, xmax, ymin, ymax = tile_bbox(means2d, radii.to(torch.float32), tb)
+    tile_area = (xmax - xmin) * (ymax - ymin)
+    valid = valid & (tile_area > 0)
+    zero = torch.zeros_like(radii)
+    return Projected(xys=means2d, conics=conic,
+                     radii=torch.where(valid, radii, zero),
+                     num_tiles_hit=torch.where(valid, tile_area, zero),
+                     valid=valid)

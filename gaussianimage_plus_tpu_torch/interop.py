@@ -1,0 +1,93 @@
+"""Carry states and decoded streams across from the JAX package, as numpy.
+
+The port never imports JAX. These functions take the JAX package's arrays
+after ``np.asarray`` (or anything with the same field names whose leaves
+``np.asarray`` accepts, such as a JAX ``Encoding``) and build the port's
+objects on a device, so both packages can compute from identical inputs:
+
+- ``state_from_numpy``: a ``results/repr_states_*/*.npz`` file or a dict of
+  ``GaussianState`` leaves (``xyz``, ``cov2d``, ``features``, ``active``,
+  ``bound``, optional ``num_active``) -> ``GaussianState``;
+  ``config_from_numpy`` builds the matching ``GaussianConfig``;
+- ``encoding_from_numpy`` / ``bundle_from_numpy``: a JAX ``DecodedBitstream``'s
+  ``enc`` / ``bundle`` -> ``Encoding`` / ``QuantizerBundle``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .compress.pipeline import Encoding, QuantizerBundle
+from .compress.quantizers import HybridQuantParams, LogQuantState, UniformQuantParams
+from .compress.residual_vq import ResidualVQState, VQCodebook
+from .core.precision import resolve_device
+from .models.gaussian_image import GaussianConfig, GaussianParams, GaussianState
+
+
+def _t(a, dev, dtype=None) -> torch.Tensor:
+    arr = np.array(a)            # a writable copy: torch shares its memory
+    if dtype is None and arr.dtype == np.float64:
+        arr = arr.astype(np.float32)
+    t = torch.from_numpy(arr)
+    return t.to(device=dev, dtype=dtype) if dtype is not None else t.to(dev)
+
+
+def state_from_numpy(d, device=None) -> GaussianState:
+    """Mapping of per-Gaussian arrays -> ``GaussianState`` on ``device``."""
+    dev = resolve_device(device)
+    active = _t(d["active"], dev, torch.bool)
+    num = d["num_active"] if "num_active" in d else np.asarray(d["active"]).sum()
+    return GaussianState(
+        params=GaussianParams(xyz=_t(d["xyz"], dev, torch.float32),
+                              cov2d=_t(d["cov2d"], dev, torch.float32),
+                              features=_t(d["features"], dev, torch.float32)),
+        active=active, bound=_t(d["bound"], dev, torch.float32),
+        num_active=_t(np.asarray(num, np.int32), dev))
+
+
+def config_from_numpy(d, **overrides) -> GaussianConfig:
+    """``GaussianConfig`` for a saved state (H, W, colour activation, cap)."""
+    kw = dict(H=int(d["H"]), W=int(d["W"]),
+              max_num_points=int(np.asarray(d["xyz"]).shape[0]))
+    if "color_norm" in d:
+        kw["color_norm"] = bool(d["color_norm"])
+    if "tile_cap" in d:
+        kw["tile_cap"] = int(d["tile_cap"])
+    kw.update(overrides)
+    return GaussianConfig(**kw)
+
+
+def _uniform(p, dev) -> UniformQuantParams:
+    return UniformQuantParams(scale=_t(p.scale, dev, torch.float32),
+                              beta=_t(p.beta, dev, torch.float32))
+
+
+def encoding_from_numpy(enc, device=None) -> Encoding:
+    """An object with ``Encoding``'s fields (e.g. the JAX one) -> ``Encoding``."""
+    dev = resolve_device(device)
+    codes = np.asarray(enc.color_codes)
+    return Encoding(
+        means=_t(enc.means, dev, torch.float32),
+        quant_means=_t(enc.quant_means, dev, torch.float32),
+        quant_cov=_t(enc.quant_cov, dev, torch.float32),
+        color_codes=_t(codes, dev, torch.int32 if codes.dtype.kind in "iu" else torch.float32),
+        log_state=LogQuantState(beta=_t(enc.log_state.beta, dev, torch.float32),
+                                scale=_t(enc.log_state.scale, dev, torch.float32)),
+        active=_t(enc.active, dev, torch.bool),
+        num_active=_t(np.asarray(enc.num_active, np.int32), dev))
+
+
+def bundle_from_numpy(bundle, device=None) -> QuantizerBundle:
+    """An object with ``QuantizerBundle``'s grid fields -> ``QuantizerBundle``."""
+    dev = resolve_device(device)
+    color_vq = None
+    if getattr(bundle, "color_vq", None) is not None:
+        color_vq = ResidualVQState(layers=tuple(
+            VQCodebook(embed=_t(cb.embed, dev, torch.float32),
+                       cluster_size=_t(cb.cluster_size, dev, torch.float32),
+                       embed_avg=_t(cb.embed_avg, dev, torch.float32))
+            for cb in bundle.color_vq.layers))
+    return QuantizerBundle(xy=_uniform(bundle.xy, dev),
+                           cov=HybridQuantParams(cov=_uniform(bundle.cov.cov, dev)),
+                           color=_uniform(bundle.color, dev), color_vq=color_vq)

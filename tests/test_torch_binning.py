@@ -1,0 +1,129 @@
+"""Port selection plumbing against the JAX package: ``bin_gaussians``
+(``top_k`` and ``scatter``, with an overflowing tile at a small cap),
+``morton_perm`` and the chunk-list lists (``_table_bbox``/``_chunk_lists``,
+also at ``lmax=1`` where the residual interval is live). Integer outputs must
+be exactly equal, on random scenes and on every committed fitted state.
+"""
+
+import functools
+import glob
+import os
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from gaussianimage_plus_tpu.core import binning as jb
+from gaussianimage_plus_tpu.kernels import raster_list_pallas as jrl
+from gaussianimage_plus_tpu.models import gaussian_image as jgi
+
+from gaussianimage_plus_tpu_torch.core import binning as tb
+from gaussianimage_plus_tpu_torch.interop import config_from_numpy, state_from_numpy
+from gaussianimage_plus_tpu_torch.kernels import raster_list as trl
+from gaussianimage_plus_tpu_torch.models import gaussian_image as tgi
+
+from test_torch_raster import both_projections, scene
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STATES = sorted(glob.glob(os.path.join(ROOT, "results", "repr_states_*", "*.npz")))
+
+
+def _eq(a_torch, a_jax, what):
+    np.testing.assert_array_equal(a_torch.numpy(), np.asarray(a_jax), err_msg=what)
+
+
+def assert_bins_equal(bt, bj, what=""):
+    for k in ("ids", "mask", "count"):
+        _eq(getattr(bt, k), getattr(bj, k), f"{what} {k}")
+
+
+@functools.partial(jax.jit, static_argnames=("H", "W", "cap", "method"))
+def _jax_bins(proj, H, W, cap, method):
+    return jb.bin_gaussians(proj, H, W, cap=cap, method=method)
+
+
+@functools.partial(jax.jit, static_argnames=("H", "W", "kc", "lmax"))
+def _jax_lists(proj, colors, opacity, H, W, kc, lmax):
+    table, bbox, member, _, _, _, N, Np = jrl._table_bbox(proj, colors, opacity, H, W, 16, 16, kc)
+    return (table, bbox) + tuple(jrl._chunk_lists(member, N, Np, kc, lmax))
+
+
+_jax_morton = jax.jit(jb.morton_perm, static_argnames=("H", "W"))
+
+
+def assert_lists_equal(pj, pt, colors, H, W, kc, lmax, what=""):
+    ones_j = jnp.ones((colors.shape[0],), jnp.float32)
+    out_j = _jax_lists(pj, jnp.asarray(colors), ones_j, H, W, kc, lmax)
+    table, bbox, lst, cnt, lo2, hi2 = trl.list_inputs(
+        pt, torch.as_tensor(colors), torch.ones(colors.shape[0]), H, W, kc, lmax)
+    np.testing.assert_allclose(table.numpy(), np.asarray(out_j[0]), rtol=1e-6, err_msg=what)
+    for name, a, b in zip(("bbox", "lst", "cnt", "lo2", "hi2"),
+                          (bbox, lst, cnt, lo2, hi2), out_j[1:]):
+        _eq(a, b, f"{what} {name}")
+    return cnt, hi2
+
+
+@pytest.mark.parametrize("method", ["top_k", "scatter"])
+@pytest.mark.parametrize("cap", [64, 8, 1])
+def test_bin_gaussians_scene(method, cap):
+    xy, cov, colors, opacity, H, W = scene(n=120, seed=11, n_invalid=5)
+    xy[:30] = 12.0            # one crowded tile: overflows small caps
+    pj, pt = both_projections(xy, cov, H, W)
+    bj = jb.bin_gaussians(pj, H, W, cap=cap, method=method)
+    bt = tb.bin_gaussians(pt, H, W, cap=cap, method=method)
+    assert_bins_equal(bt, bj, f"{method} cap {cap}")
+    if cap <= 8:
+        assert int(torch.clamp(pt.num_tiles_hit, max=1).sum()) > cap  # overflow exercised
+        assert int(bt.count.max()) == cap
+
+
+def test_bin_methods_not_ported_raise():
+    xy, cov, *_ , H, W = scene(n=10, seed=1)
+    _, pt = both_projections(xy, cov, H, W)
+    for method in ("hier", "pallas"):
+        with pytest.raises(NotImplementedError):
+            tb.bin_gaussians(pt, H, W, method=method)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_morton_perm_scene(seed):
+    xy, cov, colors, opacity, H, W = scene(n=200, seed=seed, n_invalid=11, H=45, W=77)
+    xy[5] = [-30.0, 900.0]       # clamps to the grid edge
+    pj, pt = both_projections(xy, cov, H, W)
+    _eq(tb.morton_perm(pt.xys, pt.valid, H, W), jb.morton_perm(pj.xys, pj.valid, H, W), "perm")
+
+
+@pytest.mark.parametrize("kc,lmax", [(64, 16), (128, 16), (16, 1), (64, 1)])
+def test_chunk_lists_scene(kc, lmax):
+    xy, cov, colors, opacity, H, W = scene(n=150, seed=33, n_invalid=4)
+    pj, pt = both_projections(xy, cov, H, W)
+    cnt, hi2 = assert_lists_equal(pj, pt, colors, H, W, kc, lmax, f"kc {kc} lmax {lmax}")
+    if lmax == 1 and kc == 16:
+        assert int(hi2.max()) > 0        # the residual interval is live
+
+
+@pytest.mark.parametrize("path", STATES, ids=[os.path.basename(os.path.dirname(p))[12:] + "-"
+                                               + os.path.basename(p)[:-4] for p in STATES])
+def test_selection_committed_state(path):
+    """Binning, Morton order and list_t chunk lists of a fitted state at
+    full width (768x512, 5000 slots) equal the JAX ones."""
+    d = dict(np.load(path))
+    cfg_t = config_from_numpy(d)
+    H, W = cfg_t.H, cfg_t.W
+    st = state_from_numpy(d, device="cpu")
+    params_j = jgi.GaussianParams(xyz=jnp.asarray(d["xyz"]), cov2d=jnp.asarray(d["cov2d"]),
+                                  features=jnp.asarray(d["features"]))
+    cfg_j = jgi.GaussianConfig(H=H, W=W, max_num_points=cfg_t.max_num_points,
+                               color_norm=cfg_t.color_norm)
+    # eager, as decode runs it: under jit XLA fuses multiply-adds, which moves
+    # the conics of near-singular covariances by a few ulps
+    pj = jgi.project(params_j, jnp.asarray(d["active"]), jnp.asarray(d["bound"]), cfg_j)
+    perm_j = _jax_morton(pj.xys, pj.valid, H=H, W=W)
+    pt = tgi.project(st.params, st.active, st.bound, cfg_t)
+    assert_bins_equal(tb.bin_gaussians(pt, H, W, cap=256), _jax_bins(pj, H, W, 256, "scatter"),
+                      "top_k vs JAX scatter, cap 256")
+    _eq(tb.morton_perm(pt.xys, pt.valid, H, W), perm_j, "perm")
+    colors = tgi.colors_of(st.params, cfg_t).numpy()
+    assert_lists_equal(pj, pt, colors, H, W, trl.KC_T, trl.LMAX, "list_t lists")
