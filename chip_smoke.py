@@ -7,11 +7,12 @@ Run from the root of a checkout, on a machine with one NVIDIA card::
 
 It decodes every committed bitstream and renders every committed fitted
 state through the port's entry points, on the card, at the flagship
-configuration (768x512, ~5000 Gaussians, per-tile cap 256), and holds the two
-hand-written CUDA kernels against their plain PyTorch versions. Phases:
+configuration (768x512, ~5000 Gaussians, per-tile cap 256), fits one 768x512
+image with the trainer, and holds the three hand-written CUDA kernels against
+their plain PyTorch versions. Phases:
 
 1. card: name and power limit from ``nvidia-smi``, checked against torch;
-2. build: both kernels from ``csrc/``, one ``nvcc`` per source, together;
+2. build: the three kernels from ``csrc/``, one ``nvcc`` per source, together;
 3. kernel vs plain version on the card, at full width: kernel A
    (``tile_table_forward``) on kodim01's binned table, untrimmed (cap 256)
    and trimmed (bin-once); kernel B (``chunk_list_forward``) on a fitted
@@ -19,11 +20,17 @@ hand-written CUDA kernels against their plain PyTorch versions. Phases:
    synthetic 500x760 grid. Tolerance: ``|kernel - plain| <= 2e-5 +
    1e-5 |plain|`` at every pixel but at most 0.01% of them, where the two
    evaluations of the expanded quadratic may round across the sigma >= 0 or
-   alpha >= 1/255 gate;
-4. main path, with every launch count set to 0 first: each of the 57
-   committed streams (``results/bitstreams*/``: 48 lsq Kodak streams of
-   rounds 3 and 4, 6 with VQ colour, 3 of format v1) through
-   ``decode_bitstream`` (binned), ``prepare_decode`` + ``decode_frame`` and
+   alpha >= 1/255 gate. Kernel C (``chunk_backward``) on a fitted state in
+   Morton order at kc 128 and kc 64, on kodim01 in stream order, through
+   ``dense_backward``, and on the synthetic grid, each with the L2 cotangent
+   ``2 (render - gt) / (3 H W)`` and a seeded normal one. Tolerance, per
+   payload column: ``max |kernel - plain| <= 1e-4 max |plain|`` (the gate is
+   bit-equal, the sums run in another order); two launches give the same bits;
+4. main paths, each with every launch count set to 0 just before it and read
+   just after. Decode: each of the 57 committed streams
+   (``results/bitstreams*/``: 48 lsq Kodak streams of rounds 3 and 4, 6 with
+   VQ colour, 3 of format v1) through ``decode_bitstream`` (binned),
+   ``prepare_decode`` + ``decode_frame`` and
    ``decode_bitstream(backend='list_t')``; each fitted ``repr_states`` state
    through ``render`` with ``raster_backend='auto'`` (asserted to resolve to
    ``list_t``) and ``'pallas'``. Checks: finite [512, 768, 3] images in [0, 1];
@@ -31,12 +38,22 @@ hand-written CUDA kernels against their plain PyTorch versions. Phases:
    tile overflows the cap; kodim01's decode agrees with the dense oracle
    (``core/render_dense.py``, the reference's direct form: at least 80 dB, no
    pixel off by more than 5e-3, at most 1% beyond 2e-5); each kernel was
-   launched;
+   launched. Fit: ``fit_image`` of the port's render of
+   ``results/repr_states_plain/kodim01.npz`` from 2500 random Gaussians, 1000
+   steps, a prune every 100 and one growth with the final fill at step 500
+   (up to 5000), ``'auto'`` asserted to resolve to ``list_t``. Checks: kernel
+   C launched once a step and kernel B at least once; the growth added
+   Gaussians; finite PSNRs; best PSNR at least 5 dB above the first step's.
+   Then 100 steps from one initial state through ``'auto'`` (kernels B and C)
+   and through ``'xla'`` (the plain binned path and its VJP, cap 256, no
+   tile over the cap): their PSNRs agree within 0.05 dB at every step;
 5. timing with CUDA events: per frame (median of 50 frames) of the full
    decodes (parse included), the bin-once ``decode_frame`` and a fitted-state
-   render; per call (50 calls back to back, median of 5 runs) of each kernel
-   and each plain version on the card; and the device time of a full decode
-   under ``torch.profiler``.
+   render; per train step (median of 50) after the growth, through ``'auto'``
+   (kernels B and C) and through ``'xla'`` (the plain path); per call (50 calls
+   back to back, median of 5 runs) of each kernel and each plain version on
+   the card; and the device time of a full decode and of a train step under
+   ``torch.profiler``, and of a train step through each of the two backends.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, ...}``. Any
@@ -68,7 +85,16 @@ HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 # sigma (10), one exp, the opacity product and the min (3), 3 FMAs for the
 # colour sums (6)
 OPS_PER_PAIR = 19
+# kernel C, per (member, pixel) pair: 5 FMAs for sigma (10), the exp, the
+# opacity product and the min (3), the pixel features px*py and py^2 (2),
+# v_alpha = rgb . v_out (5), 3 FMAs for v_rgb (6), the sign and product of
+# v_sigma (2), an FMA for v_opac (2), 5 FMAs and an add for the moments (11)
+OPS_PER_PAIR_C = 41
 PIX = 256
+C_REL = 1e-4          # kernel C: per payload column, |kernel - plain| <= C_REL max |plain|
+FIT = dict(iterations=1000, prune_iter=100, grow_iter=500)
+FIT_POINTS, FIT_SEED = 2500, 3047
+AGREE_STEPS, AGREE_DB = 100, 0.05
 
 report: dict = {"phases": {}}
 
@@ -104,6 +130,30 @@ def compare(name: str, out: torch.Tensor, ref: torch.Tensor) -> float:
     report["phases"].setdefault("kernel_vs_plain", []).append(
         dict(name=name, max_abs_err=mx, pixels_outside_atol=n_bad, frac=frac))
     check(frac <= MAX_FRAC, f"{name}: {n_bad} pixels outside atol {ATOL} (> {MAX_FRAC:.2%})")
+    return mx
+
+
+def compare_payload(name: str, kernel, plain, args) -> float:
+    """Kernel C against its plain version on the same inputs, per payload
+    column, and two launches against each other, bit for bit; returns the
+    largest absolute difference."""
+    out, again = kernel(*args), kernel(*args)
+    ref = plain(*args)
+    sync()
+    check(out.shape == ref.shape, f"{name}: shape {tuple(out.shape)} vs {tuple(ref.shape)}")
+    check(bool(torch.isfinite(out).all()), f"{name}: non-finite kernel output")
+    check(torch.equal(out, again), f"{name}: two launches differ")
+    check(not bool(out[:, 9:].any()), f"{name}: padding columns not zero")
+    d = (out[:, :9] - ref[:, :9]).abs().amax(dim=0)
+    scale = ref[:, :9].abs().amax(dim=0)
+    rel = float((d / scale.clamp(min=1e-30)).max())
+    mx = float(d.max())
+    log(f"  {name}: max |kernel - plain| {mx:.3g}, worst column {rel:.3g} of its max; "
+        f"two launches bit-equal")
+    report["phases"].setdefault("kernel_vs_plain", []).append(
+        dict(name=name, max_abs_err=mx, worst_column_rel=rel))
+    check(bool((d <= C_REL * scale).all()), f"{name}: a payload column is off by more than "
+          f"{C_REL} of its max ({rel:.3g})")
     return mx
 
 
@@ -163,11 +213,11 @@ def device_time_per_call(fn, calls: int = 10, top: int = 4):
     return sum(ms for _, ms in rows), rows[:top]
 
 
-def bound(members: int, nbytes: int) -> tuple[float, str]:
+def bound(members: int, nbytes: int, ops_per_pair: int = OPS_PER_PAIR) -> tuple[float, str]:
     """Least time the card could take: bytes over HBM rate vs float32
     operations over the CUDA-core rate, in ms, and which one bounds."""
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = members * PIX * OPS_PER_PAIR / F32_FLOPS * 1e3
+    t_ops = members * PIX * ops_per_pair / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -211,15 +261,18 @@ def run() -> None:
     from gaussianimage_plus_tpu_torch.compress.bitstream import decode_bitstream
     from gaussianimage_plus_tpu_torch.compress.pipeline import (
         _decode_attributes, decode_frame, morton_reorder, prepare_decode)
-    from gaussianimage_plus_tpu_torch.core.binning import bin_gaussians
+    from gaussianimage_plus_tpu_torch.core.binning import bin_gaussians, morton_perm
     from gaussianimage_plus_tpu_torch.core.gaussian2d import project_gaussians_2d_covariance
     from gaussianimage_plus_tpu_torch.core.render_dense import render_dense
     from gaussianimage_plus_tpu_torch.interop import config_from_numpy, state_from_numpy
-    from gaussianimage_plus_tpu_torch.kernels import _build, raster_binned, raster_list
+    from gaussianimage_plus_tpu_torch.kernels import _build, raster_binned, raster_dense, raster_list
     from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
 
     kernel_a, kernel_b = raster_binned.tile_table_forward, raster_list.chunk_list_forward
     plain_a, plain_b = raster_binned.tile_table_forward_plain, raster_list.chunk_list_forward_plain
+    kernel_c, plain_c = raster_list.chunk_backward, raster_list.chunk_backward_plain
+    kernels_abc = (kernel_a, kernel_b, kernel_c)
     dev = torch.device("cuda")
 
     # ---- 1. card
@@ -233,9 +286,9 @@ def run() -> None:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    ptxas = _build.build_all(["tile_table_forward", "chunk_list_forward"])
+    ptxas = _build.build_all(["tile_table_forward", "chunk_list_forward", "chunk_backward"])
     build_s = time.perf_counter() - t0
-    log(f"[2] built both kernels in {build_s:.1f} s (sm_90a, one nvcc per source)")
+    log(f"[2] built the three kernels in {build_s:.1f} s (sm_90a, one nvcc per source)")
     for name, text in ptxas.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
@@ -262,7 +315,7 @@ def run() -> None:
 
     # ---- 3. kernel vs plain, full width
     log("[3] kernels against their plain versions on the card")
-    err = {"a": 0.0, "b": 0.0}
+    err = {"a": 0.0, "b": 0.0, "c": 0.0}
     _, dec01 = decode_bitstream(kodim01, device=dev)
     cfg01 = stream_cfg(dec01)
     H, W = cfg01.H, cfg01.W
@@ -310,10 +363,68 @@ def run() -> None:
     err["b"] = max(err["b"], compare("B synthetic 500x760 kc 128",
                                      kernel_b(*inp_o, 128, Ho, Wo), plain_b(*inp_o, 128, Ho, Wo)))
 
-    # ---- 4. main path
+    # kernel C, with the L2 cotangent against the fit's target and a seeded normal one
+    d_gt = dict(np.load(ROOT / "results" / "repr_states_plain" / "kodim01.npz"))
+    cfg_gt = config_from_numpy(d_gt)
+    with torch.no_grad():
+        gt = gi.render(state_from_numpy(d_gt, device=dev), cfg_gt)
+
+    def l2_cotangent(img, target=gt):
+        return (2.0 * (img - target) / img.numel()).contiguous()
+
+    def normal_cotangent(h, w, seed):
+        r = np.random.default_rng(seed)
+        return torch.as_tensor(r.normal(size=(h, w, 3)).astype(np.float32), device=dev)
+
+    def morton_state(s, cfg):
+        perm = morton_perm(s.params.xyz, s.active, cfg.H, cfg.W)
+        return s._replace(params=gi.GaussianParams(*(p[perm] for p in s.params)),
+                          active=s.active[perm], bound=s.bound[perm])
+
+    def c_inputs(proj, colors, h, w, kc):
+        table, bbox, _, _ = raster_list._table_bbox(proj, colors, torch.ones(
+            (proj.xys.shape[0],), device=dev), h, w, kc)
+        return table, bbox
+
+    def compare_c(tag, proj, colors, h, w, kc, cotangents):
+        table, bbox = c_inputs(proj, colors, h, w, kc)
+        for ctag, cot in cotangents.items():
+            err["c"] = max(err["c"], compare_payload(f"C {tag} kc {kc}, {ctag} cotangent",
+                                                     kernel_c, plain_c, (table, bbox, cot)))
+
+    st_m = morton_state(st, cfg_s)
+    proj_sm, col_sm = gi.project(st_m.params, st_m.active, st_m.bound, cfg_s), gi.colors_of(st_m.params, cfg_s)
+    with torch.no_grad():
+        cot_sm = {"L2": l2_cotangent(gi.render(st_m, cfg_s)),
+                  "normal": normal_cotangent(cfg_s.H, cfg_s.W, 1)}
+    for kc in (128, 64):
+        compare_c(f"{states[0].parent.name}/{states[0].stem} Morton", proj_sm, col_sm,
+                  cfg_s.H, cfg_s.W, kc, cot_sm)
+    img01_s, _ = decode_bitstream(kodim01, device=dev)
+    proj01_s, col01_s, _ = stream_inputs(dec01, cfg01)
+    compare_c("kodim01 stream order", proj01_s, col01_s, H, W, 128,
+              {"L2": l2_cotangent(img01_s), "normal": normal_cotangent(H, W, 2)})
+    n_s = cfg_s.max_num_points
+    ones_sm = torch.ones((n_s,), device=dev)
+
+    def packed(grads):
+        v_xy, v_con, v_col, v_op = grads
+        return torch.cat([v_xy, v_con, v_col, v_op[:, None], v_xy.new_zeros((v_xy.shape[0], 7))], 1)
+
+    t64, b64, _, _ = raster_list._table_bbox(proj_sm, col_sm, ones_sm, cfg_s.H, cfg_s.W,
+                                             raster_list.KC)
+    err["c"] = max(err["c"], compare_payload(
+        "C dense_backward, fitted state Morton, L2 cotangent",
+        lambda cot: packed(raster_dense.dense_backward(proj_sm, col_sm, ones_sm, cot, cfg_s.H, cfg_s.W)),
+        lambda cot: packed(raster_list.split_payload(plain_c(t64, b64, cot), n_s, ones_sm)),
+        (cot_sm["L2"],)))
+    compare_c("synthetic 500x760", proj_o, col_o, Ho, Wo, 128,
+              {"normal": normal_cotangent(Ho, Wo, 3)})
+
+    # ---- 4. main paths
     log("[4] main path: decode every committed stream, render every fitted state")
-    kernel_a.launches = 0
-    kernel_b.launches = 0
+    for k in kernels_abc:
+        k.launches = 0
     t_main = time.perf_counter()
     agree_max = 0.0
     capped = []
@@ -379,6 +490,65 @@ def run() -> None:
     report["phases"]["main_path"] = dict(seconds=main_s, launches=launches,
                                          agree_max_abs=agree_max, overflowing=capped)
 
+    # the fit: a 768x512 target from 2500 random Gaussians, grown to 5000
+    cfg_fit = gi.GaussianConfig()
+    fit_target = gt
+    tcfg = tr.TrainConfig(**FIT)
+    check(gi.resolve_backend(cfg_fit, dev) == "list_t",
+          f"fit: 'auto' resolved to {gi.resolve_backend(cfg_fit, dev)!r}")
+    log(f"[4] main path: fit_image of the render of results/repr_states_plain/kodim01.npz, "
+        f"{FIT_POINTS} Gaussians up to {cfg_fit.max_num_points}, {FIT}")
+    for k in kernels_abc:
+        k.launches = 0
+    t_fit = time.perf_counter()
+    res = tr.fit_image(fit_target, cfg_fit, tcfg, FIT_POINTS, seed=FIT_SEED, device=dev)
+    sync()
+    fit_s = time.perf_counter() - t_fit
+    launches_fit = {"a": kernel_a.launches, "b": kernel_b.launches, "c": kernel_c.launches}
+    hist = {k: v.cpu().numpy() for k, v in res.history.items()}
+    psnr = hist["psnr"]
+    g = FIT["grow_iter"] // FIT["prune_iter"] - 1                # the chunk that grows
+    n_before, n_after = int(hist["num_active"][g] - hist["n_added"][g]), int(hist["num_active"][g])
+    at = {s_: float(psnr[s_ - 1]) for s_ in (1, 100, 500, 1000)}
+    log(f"  {FIT['iterations']} steps in {fit_s:.1f} s; launches: tile_table_forward "
+        f"{launches_fit['a']}, chunk_list_forward {launches_fit['b']}, chunk_backward "
+        f"{launches_fit['c']}; PSNR at steps " + "/".join(map(str, at)) + ": "
+        + " / ".join(f"{v:.4f}" for v in at.values())
+        + f" dB; best {res.best_psnr:.4f} dB at step {res.best_iter}; active "
+        f"{n_before} -> {n_after} at the growth, {int(res.state.num_active)} in the best state; "
+        f"pruned {int(hist['n_pruned'].sum())} in all")
+    report["phases"]["fit"] = dict(seconds=fit_s, launches=launches_fit, psnr_at=at,
+                                   best_psnr=res.best_psnr, best_iter=res.best_iter,
+                                   active_before_growth=n_before, active_after_growth=n_after,
+                                   num_active_per_chunk=hist["num_active"].tolist(),
+                                   pruned=int(hist["n_pruned"].sum()))
+    check(launches_fit["c"] == FIT["iterations"], f"fit: kernel C launched {launches_fit['c']} times")
+    check(launches_fit["b"] >= FIT["iterations"], f"fit: kernel B launched {launches_fit['b']} times")
+    check(n_after > n_before, f"fit: the growth did not add Gaussians ({n_before} -> {n_after})")
+    check(bool(np.isfinite(psnr).all()), "fit: non-finite PSNR")
+    check(res.best_psnr >= psnr[0] + 5.0, f"fit: best PSNR {res.best_psnr:.3f} dB is not 5 dB "
+          f"above the first step's {psnr[0]:.3f} dB")
+
+    # the same 100 steps through kernels B + C and through the plain binned path
+    ts0 = tr.init_train_state(cfg_fit, tcfg, FIT_POINTS, seed=FIT_SEED + 1, device=dev)
+    g0 = ts0.gaussians
+    most = int(bin_gaussians(gi.project(g0.params, g0.active, g0.bound, cfg_fit), cfg_fit.H,
+                             cfg_fit.W, cap=cfg_fit.tile_cap + 1).count.max())
+    check(most <= cfg_fit.tile_cap, f"agreement run: a tile holds {most} > cap at init")
+    agree_psnr = {}
+    for backend in ("auto", "xla"):
+        _, m = tr.train_chunk(ts0, fit_target, dataclasses.replace(cfg_fit, raster_backend=backend),
+                              tcfg, AGREE_STEPS, False, False)
+        agree_psnr[backend] = m["psnr"].cpu().numpy()
+    agree_db = float(np.abs(agree_psnr["auto"] - agree_psnr["xla"]).max())
+    log(f"  {AGREE_STEPS} steps 'auto' (kernels B + C) vs 'xla' (plain, cap 256, at most {most} "
+        f"in a tile at init): PSNR {agree_psnr['auto'][-1]:.4f} vs {agree_psnr['xla'][-1]:.4f} dB "
+        f"at the last step, at most {agree_db:.3g} dB apart")
+    report["phases"]["auto_vs_xla"] = dict(max_db=agree_db, steps=AGREE_STEPS,
+                                           psnr_auto=agree_psnr["auto"].tolist(),
+                                           psnr_xla=agree_psnr["xla"].tolist())
+    check(agree_db <= AGREE_DB, f"'auto' and 'xla' fits differ by {agree_db:.3g} dB")
+
     # the dense oracle (direct form, independent of the tile table) on kodim01
     img01, _ = decode_bitstream(kodim01, device=dev)
     proj01, col01, ones01 = stream_inputs(dec01, cfg01)
@@ -411,9 +581,45 @@ def run() -> None:
         "kernel B, kodim01 Morton kc 128": launch_ms(lambda: kernel_b(*inp_m, 128, H, W)),
         "plain B, kodim01 kc 128": launch_ms(lambda: plain_b(*inp_l, 128, H, W)),
     }
+    # a train step after the growth: the fit's best state, in Morton order, fresh Adam
+    ts_t = tr._morton_resort(tr.init_train_state(cfg_fit, tcfg, 0, gaussians=res.state), cfg_fit)
+    tx = tr.make_optimizer(tcfg)
+    cur = [ts_t]
+
+    def one_step():
+        cur[0] = tr.train_step(cur[0], fit_target, cfg_fit, tcfg, tx)[0]
+
+    n_timed = int(ts_t.gaussians.num_active)
+    times[f"train step, {n_timed} active, auto (list_t)"] = step_ms = median_ms(one_step)
+    # kernel C at the timed fit's shapes, with the L2 cotangent of its render
+    g_t = ts_t.gaussians
+    proj_t, col_t = gi.project(g_t.params, g_t.active, g_t.bound, cfg_fit), gi.colors_of(g_t.params, cfg_fit)
+    with torch.no_grad():
+        cot_t = l2_cotangent(gi.render(g_t, cfg_fit), fit_target)
+    table_c, bbox_c = c_inputs(proj_t, col_t, cfg_fit.H, cfg_fit.W, 128)
+    err["c"] = max(err["c"], compare_payload("C timed fit state Morton kc 128, L2 cotangent",
+                                             kernel_c, plain_c, (table_c, bbox_c, cot_t)))
+    times["kernel C, fit state kc 128"] = launch_ms(lambda: kernel_c(table_c, bbox_c, cot_t))
+    times["plain C, fit state kc 128"] = launch_ms(lambda: plain_c(table_c, bbox_c, cot_t))
     for k, v in times.items():
         log(f"  {k}: {v:.4f} ms")
     report["times_ms"] = times
+    # the same step through the plain binned path and its VJP, for comparison
+    cfg_xla = dataclasses.replace(cfg_fit, raster_backend="xla")
+    cur_xla = [tr.init_train_state(cfg_fit, tcfg, 0, gaussians=res.state)]
+
+    def one_step_xla():
+        cur_xla[0] = tr.train_step(cur_xla[0], fit_target, cfg_xla, tcfg, tx)[0]
+
+    times[f"train step, {n_timed} active, xla (plain)"] = step_xla_ms = median_ms(one_step_xla)
+    log(f"  train step, {n_timed} active, xla (plain): {step_xla_ms:.4f} ms")
+    for tag, fn, ms_step in (("auto (list_t)", one_step, step_ms), ("xla (plain)", one_step_xla, step_xla_ms)):
+        busy, top = device_time_per_call(fn, top=6)
+        log(f"  train step {tag}: device busy {busy:.4f} ms of a {ms_step:.4f} ms step "
+            f"({busy / ms_step:.1%}); top device time: "
+            + "; ".join(f"{name[:60]} {ms:.4f} ms" for name, ms in top))
+        report.setdefault("train_step_device_time", {})[tag] = dict(
+            busy_ms=busy, step_ms=ms_step, active=n_timed, top=top)
 
     # where a full decode's time goes: device time per frame under torch.profiler
     for backend in ("binned", "list_t"):
@@ -444,13 +650,22 @@ def run() -> None:
         report.setdefault("kernel_b_rows_visited", {})[tag] = rows
     bound_a, by_a = bound(members_a, bytes_a)
     bound_b, by_b = bound(members_b, bytes_b)
+    live = table_c[:, 15] > 0
+    area = ((bbox_c[:, 1] - bbox_c[:, 0]) * (bbox_c[:, 3] - bbox_c[:, 2]))[live]
+    members_c, largest_c = int(area.sum()), int(area.max())
+    bytes_c = (2 * table_c.numel() + bbox_c.numel()) * 4 + cfg_fit.H * cfg_fit.W * 3 * 4
+    bound_c, by_c = bound(members_c, bytes_c, OPS_PER_PAIR_C)
+    log(f"  kernel C on the fit state: {int(live.sum())} valid rows, {members_c} (row, tile) "
+        f"members, largest bbox {largest_c} tiles")
+    report["kernel_c_input"] = dict(rows=int(live.sum()), members=members_c, largest_bbox_tiles=largest_c)
     kernels = [
         dict(name="tile_table_forward", route="cuda",
              source="gaussianimage_plus_tpu_torch/csrc/tile_table_forward.cu",
              replaces="gaussianimage_plus_tpu/kernels/raster_pallas.py:218 (_run_fwd); "
                       "gaussianimage_plus_tpu/kernels/raster_flat_pallas.py:82 "
                       "(rasterize_prepared_flat)",
-             launches=launches["a"], max_abs_err=err["a"], ms=times["kernel A, kodim01 trimmed"],
+             launches=launches["a"] + launches_fit["a"], max_abs_err=err["a"],
+             ms=times["kernel A, kodim01 trimmed"],
              plain_ms=times["plain A, kodim01 trimmed"], bound_ms=bound_a, bound_by=by_a, library_ms=None,
              shape=f"kodim01 bin-once table {tuple(prep_trim.raw.shape)}, {members_a} members"),
         dict(name="chunk_list_forward", route="cuda",
@@ -458,11 +673,24 @@ def run() -> None:
              replaces="gaussianimage_plus_tpu/kernels/raster_list_pallas.py:252 "
                       "(rasterize_list_pallas); gaussianimage_plus_tpu/kernels/"
                       "raster_list_pallas.py:376 (rasterize_list_t_pallas)",
-             launches=launches["b"], max_abs_err=err["b"], ms=times["kernel B, kodim01 kc 128"],
+             launches=launches["b"] + launches_fit["b"], max_abs_err=err["b"],
+             ms=times["kernel B, kodim01 kc 128"],
              plain_ms=times["plain B, kodim01 kc 128"], bound_ms=bound_b, bound_by=by_b,
              library_ms=None,
              shape=f"kodim01 table {tuple(table.shape)}, kc 128, lmax {lst.shape[1]}, "
                    f"{members_b} members"),
+        dict(name="chunk_backward", route="cuda",
+             source="gaussianimage_plus_tpu_torch/csrc/chunk_backward.cu",
+             replaces="gaussianimage_plus_tpu/kernels/raster_list_pallas.py:701 "
+                      "(list_backward layout='rows', body :429-518); gaussianimage_plus_tpu/"
+                      "kernels/raster_list_pallas.py:681 (list_backward layout='lanes', body "
+                      ":521-614); gaussianimage_plus_tpu/kernels/raster_dense_pallas.py:292 "
+                      "(dense_backward, body :102-183)",
+             launches=launches_fit["c"], max_abs_err=err["c"],
+             ms=times["kernel C, fit state kc 128"], plain_ms=times["plain C, fit state kc 128"],
+             bound_ms=bound_c, bound_by=by_c, library_ms=None,
+             shape=f"fit state after growth, table {tuple(table_c.shape)}, {int(live.sum())} "
+                   f"valid rows, {members_c} (row, tile) members, largest bbox {largest_c} tiles"),
     ]
     report["kernels"] = kernels
     write_report()

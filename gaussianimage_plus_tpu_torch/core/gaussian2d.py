@@ -1,7 +1,7 @@
 """Per-Gaussian 2D projection: conic/radius bounds, tile bbox, culling.
 
-Port of ``gaussianimage_plus_tpu/core/gaussian2d.py`` (forward only:
-``compute_cov2d_bounds``, ``tile_bbox``, ``_project_cov2d_fwd_impl`` and the
+Port of ``gaussianimage_plus_tpu/core/gaussian2d.py`` (``compute_cov2d_bounds``,
+``tile_bbox``, ``_project_cov2d_fwd_impl``, ``_project_cov2d_bwd`` and the
 parameterization helpers). Same reference semantics (gsplat
 ``helpers.cuh:179-206``, ``foward2d.cu:192-288``): adjugate inverse,
 eigenvalue discriminant floor 0.1, ``ceil(clip_coe * sqrt(eig))`` radii, cull
@@ -11,7 +11,11 @@ bbox. Culled Gaussians carry ``valid=False``.
 Integer outputs (radii, bbox, ``num_tiles_hit``) equal the JAX package's
 exactly: float->int32 casts saturate as XLA's do (``_to_int32``), and the
 bbox truncates toward zero before clamping, as the reference's C casts do.
-The hand-written VJP (``_project_cov2d_bwd``) belongs to the training slice.
+
+The projection is differentiable in the means and the covariance through a
+hand-written VJP, ``_ProjectCov2d`` (the JAX ``_project_cov2d_bwd``, reference
+backward2d.cu:157-214); the Cholesky and scale-rotation helpers stay plain
+autograd on top of it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -130,11 +134,9 @@ def tile_bbox(xys: torch.Tensor, radii: torch.Tensor, tile_bounds: Tuple[int, in
     return xmin, xmax, ymin, ymax
 
 
-def project_gaussians_2d_covariance(means2d: torch.Tensor, cov2d: torch.Tensor,
-                                    H: int, W: int, clip_coe: float = 3.0,
-                                    radius_clip: float = 1.0) -> Projected:
-    """Forward of the ACTIVE projection path: means already in pixels,
-    covariance passed through directly (``_project_cov2d_fwd_impl``)."""
+def _project_fwd(means2d: torch.Tensor, cov2d: torch.Tensor, H: int, W: int,
+                 clip_coe: float, radius_clip: float) -> Projected:
+    """``_project_cov2d_fwd_impl``."""
     tb = tile_bounds_for(H, W)
     conic, radius, det_valid = compute_cov2d_bounds(cov2d, clip_coe)
     valid = det_valid & (radius[:, 1] >= radius_clip)
@@ -147,3 +149,55 @@ def project_gaussians_2d_covariance(means2d: torch.Tensor, cov2d: torch.Tensor,
                      radii=torch.where(valid, radii, zero),
                      num_tiles_hit=torch.where(valid, tile_area, zero),
                      valid=valid)
+
+
+def project_cov2d_vjp(conics: torch.Tensor, valid: torch.Tensor,
+                      v_xy: torch.Tensor, v_conic: torch.Tensor):
+    """``_project_cov2d_bwd``: ``v_cov2d = -X G X`` with X the conic and G
+    the symmetrized ``v_conic`` (cov2d_to_conic_vjp, helpers.cuh:384-395),
+    both off-diagonal products summed into the packed slot; ``v_mean =
+    v_xy`` as is. Both are zero where ``valid`` is false (the reference
+    kernel returns early for culled Gaussians)."""
+    cx, cxy, cy = conics[:, 0], conics[:, 1], conics[:, 2]
+    gx, gxy, gy = v_conic[:, 0], v_conic[:, 1], v_conic[:, 2]
+    m00 = cx * gx + cxy * gxy
+    m01 = cx * gxy + cxy * gy
+    m10 = cxy * gx + cy * gxy
+    m11 = cxy * gxy + cy * gy
+    s00 = m00 * cx + m01 * cxy
+    s01 = m00 * cxy + m01 * cy
+    s10 = m10 * cx + m11 * cxy
+    s11 = m10 * cxy + m11 * cy
+    v_cov2d = -torch.stack([s00, s01 + s10, s11], dim=-1)
+    vmask = valid[:, None]
+    return (torch.where(vmask, v_xy, torch.zeros_like(v_xy)),
+            torch.where(vmask, v_cov2d, torch.zeros_like(v_cov2d)))
+
+
+class _ProjectCov2d(torch.autograd.Function):
+    """Projection with the reference's hand-written VJP: gradients reach the
+    means and the covariance only (radii, ``num_tiles_hit`` and ``valid``
+    carry none, as the reference returns None for them)."""
+
+    @staticmethod
+    def forward(ctx, means2d, cov2d, H, W, clip_coe, radius_clip):
+        out = _project_fwd(means2d, cov2d, H, W, clip_coe, radius_clip)
+        ctx.save_for_backward(out.conics, out.valid)
+        ctx.mark_non_differentiable(out.radii, out.num_tiles_hit, out.valid)
+        # a fresh tensor for xys: autograd must not see an input returned as is
+        return means2d.clone(), out.conics, out.radii, out.num_tiles_hit, out.valid
+
+    @staticmethod
+    def backward(ctx, v_xy, v_conic, *_):
+        conics, valid = ctx.saved_tensors
+        v_mean, v_cov = project_cov2d_vjp(conics, valid, v_xy, v_conic)
+        return v_mean, v_cov, None, None, None, None
+
+
+def project_gaussians_2d_covariance(means2d: torch.Tensor, cov2d: torch.Tensor,
+                                    H: int, W: int, clip_coe: float = 3.0,
+                                    radius_clip: float = 1.0) -> Projected:
+    """The ACTIVE projection path: means already in pixels, covariance
+    passed through directly. Differentiable in ``means2d`` and ``cov2d``
+    through ``_ProjectCov2d``."""
+    return Projected(*_ProjectCov2d.apply(means2d, cov2d, H, W, clip_coe, radius_clip))

@@ -1,10 +1,13 @@
-"""Tile-binned accumulated-sum rasterizer, forward — the plain PyTorch path.
+"""Tile-binned accumulated-sum rasterizer and its VJP — the plain PyTorch path.
 
-Port of the forward of ``gaussianimage_plus_tpu/core/render_tiled.py``
-(``rasterize_tiled``, ``_tiles_to_image``, ``_image_to_tiles``). It is also
-the plain version of the port's binned kernel (``kernels/raster_binned.py``,
+Port of ``gaussianimage_plus_tpu/core/render_tiled.py`` (``rasterize_tiled``
+with its hand-written VJP ``_rasterize_bwd`` and ``scatter_tile_grads``,
+``_tiles_to_image``, ``_image_to_tiles``): the JAX ``'xla'`` backend. It is
+also the plain version of the port's binned kernel (``kernels/raster_binned.py``,
 kernel A): both evaluate the same per-tile blend over a pre-gathered
-``[T, K, 16]`` attribute table, in the same arithmetic.
+``[T, K, 16]`` attribute table, in the same arithmetic; and its per-(tile,
+slot) gradient payload (``tile_grads``) is the plain version of the
+chunk-list backward kernel (``kernels/raster_list.py``, kernel C).
 
 Per (Gaussian, pixel), reference forward.cu:650-668:
 
@@ -22,8 +25,21 @@ origin, so a different order moves ``sigma`` by many ulps there; PyTorch has
 no fused multiply-add on tensors, so ``_fma`` emulates one in float64 (the
 product of a float32 and a small integer is exact in float64).
 
+Backward, per (tile, slot), with the reference's conventions
+(backward.cu:1297-1320; the JAX module docstring has the derivation):
+
+    v_rgb   = sum_p weights * v_out          v_alpha = rgb . v_out
+    v_sigma = -(opac * vis) * v_alpha        (through the saturated min)
+    v_opac  = sum_p vis * v_alpha
+    M       = sum_p v_sigma * phi(p)         six moments, tile-local
+    v_conic = half off-diagonal, from M, lmx, lmy;  v_xy from M and the conic
+
+where the gate (sigma >= 0, alpha >= 1/255, valid) is recomputed with the
+forward's arithmetic, so a pair contributes to the gradient exactly when it
+contributed to the image. The per-Gaussian sums are deterministic
+(``index_sum_``), which replaces the reference's warp sums and ``atomicAdd``.
+
 Tiles are processed in batches so that memory stays bounded at full width.
-The hand-written VJP belongs to the training slice.
 """
 
 from __future__ import annotations
@@ -130,13 +146,123 @@ def render_table(raw: torch.Tensor, counts: torch.Tensor, H: int, W: int,
     return _tiles_to_image(out, H, W, tb_x, tb_y, block_h, block_w)
 
 
+def _phi(px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
+    """[P, 6] float32 pixel features [px^2, py^2, px*py, px, py, 1]."""
+    px, py = px.float(), py.float()
+    return torch.stack([px * px, py * py, px * py, px, py, torch.ones_like(px)], dim=-1)
+
+
+def tile_payload(raw: torch.Tensor, v_out: torch.Tensor, tile_idx: torch.Tensor,
+                 tb_x: int, block_h: int = BLOCK_H, block_w: int = BLOCK_W) -> torch.Tensor:
+    """Gradient payload [Tb, K, 9] = ``[v_xy(2), v_conic(3, half
+    off-diagonal), v_rgb(3), v_opac]`` of each slot of a gathered table
+    ``raw`` [Tb, K, 16] against the cotangent tiles ``v_out`` [Tb, P, 3]
+    (``_rasterize_bwd`` of the JAX package, per tile)."""
+    dev = raw.device
+    P = block_h * block_w
+    pp = torch.arange(P, device=dev)
+    px = (pp % block_w).double()
+    py = torch.div(pp, block_w, rounding_mode="floor").double()
+    tx0 = ((tile_idx % tb_x) * block_w).to(torch.float32)[:, None]
+    ty0 = (torch.div(tile_idx, tb_x, rounding_mode="floor") * block_h).to(torch.float32)[:, None]
+    c1, c2, c3 = raw[..., 0], raw[..., 1], raw[..., 2]
+    lmx = raw[..., 3] - tx0
+    lmy = raw[..., 4] - ty0
+    opac = raw[..., 8, None]
+    sigma = _sigma(_quad_coeffs(c1, c2, c3, lmx, lmy), px, py)     # [Tb, K, P]
+    vis = torch.exp(-sigma)
+    alpha = torch.clamp(opac * vis, max=1.0)
+    contrib = (sigma >= 0.0) & (alpha >= ALPHA_THRESHOLD) & (raw[..., 15, None] > 0.0)
+    zero = torch.zeros((), dtype=alpha.dtype, device=dev)
+    weights = torch.where(contrib, alpha, zero)
+    vo = v_out[:, None, :, :]                                       # [Tb, 1, P, 3]
+    v_alpha = (raw[..., 5, None] * vo[..., 0] + raw[..., 6, None] * vo[..., 1]
+               + raw[..., 7, None] * vo[..., 2])                    # [Tb, K, P]
+    v_rgb = torch.einsum("tkp,tpc->tkc", weights, v_out)
+    v_sigma = torch.where(contrib, -(opac * vis) * v_alpha, zero)
+    v_opac = torch.where(contrib, vis * v_alpha, zero).sum(dim=-1)
+    M = torch.einsum("tkp,pf->tkf", v_sigma, _phi(px, py))
+    Sxx, Syy, Sxy, Sx, Sy, S1 = M.unbind(-1)
+    v_con_x = 0.5 * (lmx * lmx * S1 - 2.0 * lmx * Sx + Sxx)
+    v_con_y = 0.5 * (lmx * lmy * S1 - lmx * Sy - lmy * Sx + Sxy)
+    v_con_z = 0.5 * (lmy * lmy * S1 - 2.0 * lmy * Sy + Syy)
+    mom_x = lmx * S1 - Sx
+    mom_y = lmy * S1 - Sy
+    v_xy_x = c1 * mom_x + c2 * mom_y
+    v_xy_y = c2 * mom_x + c3 * mom_y
+    return torch.cat([torch.stack([v_xy_x, v_xy_y, v_con_x, v_con_y, v_con_z], dim=-1),
+                      v_rgb, v_opac[..., None]], dim=-1)
+
+
+def index_sum_(acc: torch.Tensor, ids: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``acc[ids] += src`` row by row, in a fixed order: ``index_add_`` runs
+    serially on the CPU, where ``index_put_(accumulate=True)`` uses atomics;
+    on the card it is the other way round (``index_put_`` sorts the indices,
+    ``index_add_`` uses atomics)."""
+    if acc.device.type == "cpu":
+        return acc.index_add_(0, ids, src)
+    return acc.index_put_((ids,), src, accumulate=True)
+
+
+def tile_grads(raw: torch.Tensor, ids: torch.Tensor, counts: torch.Tensor,
+               v_img: torch.Tensor, num: int, block_h: int = BLOCK_H,
+               block_w: int = BLOCK_W) -> torch.Tensor:
+    """Per-row gradient payload sums [num, 9] of a per-tile table ``raw``
+    [T, K, 16] whose first ``counts[t]`` rows are the members ``ids[t]``
+    (row indices < ``num``) of tile t (``scatter_tile_grads``)."""
+    H, W, _ = v_img.shape
+    tb_x, tb_y = tile_bounds_for(H, W, block_h, block_w)
+    T, K, _ = raw.shape
+    P = block_h * block_w
+    dev = raw.device
+    v_out = _image_to_tiles(v_img, tb_x, tb_y, block_h, block_w)
+    acc = torch.zeros((num, 9), dtype=torch.float32, device=dev)
+    budget = _BATCH_ELEMS.get(dev.type, 1 << 22) // 4
+    kmax = int(counts.max()) if T else 0
+    step = max(1, budget // (max(min(kmax, K), 1) * P))
+    for t0 in range(0, T, step):
+        t1 = min(T, t0 + step)
+        k = min(K, int(counts[t0:t1].max()))
+        if k <= 0:
+            continue
+        idx = torch.arange(t0, t1, device=dev)
+        pay = tile_payload(raw[t0:t1, :k], v_out[t0:t1], idx, tb_x, block_h, block_w)
+        live = torch.arange(k, device=dev)[None, :] < counts[t0:t1, None]
+        index_sum_(acc, ids[t0:t1, :k][live].to(torch.int64), pay[live])
+    return acc
+
+
+class _RasterizeTiled(torch.autograd.Function):
+    """``rasterize_tiled`` with the JAX package's hand-written VJP."""
+
+    @staticmethod
+    def forward(ctx, xys, conics, colors, opacity, ids, mask, H, W, block_h, block_w):
+        from ..kernels.raster_binned import _prepare
+
+        raw, counts = _prepare(xys, conics, colors, opacity, ids, mask)
+        ctx.save_for_backward(xys, conics, colors, opacity, ids, mask)
+        ctx.blocks = (block_h, block_w)
+        return render_table(raw, counts, H, W, block_h, block_w)
+
+    @staticmethod
+    def backward(ctx, v_img):
+        from ..kernels.raster_binned import _prepare
+
+        xys, conics, colors, opacity, ids, mask = ctx.saved_tensors
+        N = xys.shape[0]
+        raw, counts = _prepare(xys, conics, colors, opacity, ids, mask)
+        ids_s = torch.where(mask, ids.to(torch.int64), torch.full_like(ids, N, dtype=torch.int64))
+        acc = tile_grads(raw, ids_s, counts, v_img.contiguous(), N + 1, *ctx.blocks)[:N]
+        return (acc[:, 0:2], acc[:, 2:5], acc[:, 5:8], acc[:, 8].reshape(opacity.shape),
+                None, None, None, None, None, None)
+
+
 def rasterize_tiled(xys, conics, colors, opacity, ids, mask,
                     H: int, W: int, block_h: int = BLOCK_H,
                     block_w: int = BLOCK_W) -> torch.Tensor:
     """Accumulated-sum rasterization of binned 2D Gaussians -> [H, W, 3],
     raw (unclamped, no background), with the plain PyTorch blend on
-    whichever device the tensors live."""
-    from ..kernels.raster_binned import _prepare
-
-    raw, counts = _prepare(xys, conics, colors, opacity, ids, mask)
-    return render_table(raw, counts, H, W, block_h, block_w)
+    whichever device the tensors live; differentiable in ``xys``,
+    ``conics``, ``colors`` and ``opacity`` through the reference's VJP."""
+    return _RasterizeTiled.apply(xys, conics, colors, opacity, ids, mask, H, W,
+                                 block_h, block_w)

@@ -10,7 +10,11 @@ objects on a device, so both packages can compute from identical inputs:
   ``bound``, optional ``num_active``) -> ``GaussianState``;
   ``config_from_numpy`` builds the matching ``GaussianConfig``;
 - ``encoding_from_numpy`` / ``bundle_from_numpy``: a JAX ``DecodedBitstream``'s
-  ``enc`` / ``bundle`` -> ``Encoding`` / ``QuantizerBundle``.
+  ``enc`` / ``bundle`` -> ``Encoding`` / ``QuantizerBundle``;
+- ``train_state_from_numpy``: an object shaped like the JAX ``TrainState``
+  (``gaussians``, ``opt_state`` = optax's Adam chain state, ``step``, the best
+  snapshot) -> the port's ``TrainState``; ``train_state_to_numpy`` goes back,
+  to a flat dict of numpy arrays named as ``TRAIN_STATE_KEYS`` lists.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from .compress.quantizers import HybridQuantParams, LogQuantState, UniformQuantP
 from .compress.residual_vq import ResidualVQState, VQCodebook
 from .core.precision import resolve_device
 from .models.gaussian_image import GaussianConfig, GaussianParams, GaussianState
+from .train.optim import AdamState
+from .train.trainer import TrainState
 
 
 def _t(a, dev, dtype=None) -> torch.Tensor:
@@ -54,6 +60,10 @@ def config_from_numpy(d, **overrides) -> GaussianConfig:
         kw["color_norm"] = bool(d["color_norm"])
     if "tile_cap" in d:
         kw["tile_cap"] = int(d["tile_cap"])
+    if "slv" in d:
+        kw["slv"] = bool(d["slv"])
+    if "psd_mode" in d:
+        kw["psd_mode"] = str(np.asarray(d["psd_mode"]))
     kw.update(overrides)
     return GaussianConfig(**kw)
 
@@ -91,3 +101,55 @@ def bundle_from_numpy(bundle, device=None) -> QuantizerBundle:
     return QuantizerBundle(xy=_uniform(bundle.xy, dev),
                            cov=HybridQuantParams(cov=_uniform(bundle.cov.cov, dev)),
                            color=_uniform(bundle.color, dev), color_vq=color_vq)
+
+
+_PARAMS = ("xyz", "cov2d", "features")
+TRAIN_STATE_KEYS = (
+    _PARAMS + ("active", "bound", "num_active", "adam_count")
+    + tuple(f"mu_{k}" for k in _PARAMS) + tuple(f"nu_{k}" for k in _PARAMS)
+    + ("step", "best_psnr", "best_iter") + tuple(f"best_{k}" for k in _PARAMS)
+    + ("best_active", "best_bound", "best_num_active"))
+
+
+def _params(p, dev) -> GaussianParams:
+    return GaussianParams(*(_t(getattr(p, k), dev, torch.float32) for k in _PARAMS))
+
+
+def train_state_from_numpy(ts, device=None, seed: int = 0) -> TrainState:
+    """An object with the JAX ``TrainState``'s fields -> ``TrainState``.
+
+    ``ts.opt_state[0]`` is optax's ``ScaleByAdamState`` (``count``, ``mu``,
+    ``nu``, each moment with the parameters' fields); the schedule's count in
+    ``ts.opt_state[1]`` equals it. The JAX PRNG key is not carried over: the
+    port's generator is seeded with ``seed``."""
+    dev = resolve_device(device)
+    adam = ts.opt_state[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    scalar = lambda a, dtype: _t(np.asarray(a), dev, dtype)
+    return TrainState(
+        gaussians=state_from_numpy(
+            {**{k: getattr(ts.gaussians.params, k) for k in _PARAMS},
+             "active": ts.gaussians.active, "bound": ts.gaussians.bound,
+             "num_active": ts.gaussians.num_active}, device=dev),
+        opt_state=AdamState(count=scalar(adam.count, torch.int32),
+                            mu=tuple(_params(adam.mu, dev)), nu=tuple(_params(adam.nu, dev))),
+        generator=gen, step=scalar(ts.step, torch.int32),
+        best_psnr=scalar(ts.best_psnr, torch.float32), best_iter=scalar(ts.best_iter, torch.int32),
+        best_params=_params(ts.best_params, dev), best_active=_t(ts.best_active, dev, torch.bool),
+        best_bound=_t(ts.best_bound, dev, torch.float32),
+        best_num_active=scalar(ts.best_num_active, torch.int32))
+
+
+def train_state_to_numpy(ts: TrainState) -> dict:
+    """``TrainState`` -> {name: numpy array} over ``TRAIN_STATE_KEYS``."""
+    gs, opt = ts.gaussians, ts.opt_state
+    out = {k: getattr(gs.params, k) for k in _PARAMS}
+    out.update(active=gs.active, bound=gs.bound, num_active=gs.num_active, adam_count=opt.count,
+               step=ts.step, best_psnr=ts.best_psnr, best_iter=ts.best_iter,
+               best_active=ts.best_active, best_bound=ts.best_bound,
+               best_num_active=ts.best_num_active)
+    for i, k in enumerate(_PARAMS):
+        out[f"mu_{k}"], out[f"nu_{k}"] = opt.mu[i], opt.nu[i]
+        out[f"best_{k}"] = ts.best_params[i]
+    return {k: out[k].detach().cpu().numpy() for k in TRAIN_STATE_KEYS}

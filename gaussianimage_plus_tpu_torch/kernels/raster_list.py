@@ -1,19 +1,38 @@
-"""Cap-free chunk-list forward rasterizer and its selection plumbing.
+"""Cap-free chunk-list rasterizer pair: forward (kernel B) and backward (kernel C).
 
-Port of the forward half of ``gaussianimage_plus_tpu/kernels/raster_list_pallas.py``:
-``_table_bbox`` (``:105-122``), ``_member_matrix`` (``:125-135``),
-``_chunk_lists`` (``:138-166``), ``_default_lmax``, and the two forwards
-``rasterize_list_pallas`` (row-major, kc 64) and ``rasterize_list_t_pallas``
-(lane-major, kc 128). The two TPU forwards compute one function and differ
-only in vector-register layout, so both route to one Hopper kernel,
-``chunk_list_forward`` (``csrc/chunk_list_forward.cu``, kernel B), on the
-row-major table; ``kc`` stays a parameter because it changes the lists.
+Port of ``gaussianimage_plus_tpu/kernels/raster_list_pallas.py``:
+``_table_bbox`` (``:105-122``), ``_member_matrix`` (``:125-135``, as
+``_bbox_members`` on the padded table), ``_chunk_lists`` (``:138-166``),
+``_default_lmax``, the two forwards ``rasterize_list_pallas`` (row-major,
+kc 64) and ``rasterize_list_t_pallas`` (lane-major, kc 128),
+``list_backward`` (``:617-725``) and the differentiable
+``rasterize_list`` / ``rasterize_list_t`` (``:733-796``). The two TPU forwards
+compute one function and differ only in vector-register layout, so both route
+to one Hopper kernel, ``chunk_list_forward`` (``csrc/chunk_list_forward.cu``,
+kernel B), on the row-major table; ``kc`` stays a parameter because it changes
+the lists.
 
 Tile t visits exactly its member chunks ``lst[t, :cnt[t]]`` plus the residual
 interval ``[lo2[t], hi2[t])`` of chunks past the list width ``lmax``, and
 re-tests each row's bbox membership, so the render is exact for any stream
 order and any occupancy, with no per-tile cap. The integer lists equal the
 JAX ones exactly.
+
+The backward is one function on the TPU in three kernels: ``list_backward``
+with ``layout="rows"`` (#6, ``_make_list_bwd_kernel``) or ``"lanes"`` (#7,
+``_make_list_t_bwd_kernel``), and its exact fallback ``dense_backward`` (#9,
+``kernels/raster_dense.py``). Each sums, for every Gaussian, the payload
+``[v_xy, v_conic (half off-diagonal), v_rgb, v_opac]`` over its (member tile,
+pixel) pairs. All three route to one Hopper kernel, ``chunk_backward``
+(``csrc/chunk_backward.cu``, kernel C), on the same row-major table and
+bbox that kernel B reads.
+
+Deviation, on purpose: the TPU backward walks per-chunk tile-block lists of
+static width ``mtb`` (built from the [T, N] membership) and falls back to
+``dense_backward`` through ``lax.cond`` when a chunk spans more than ``mtb``
+blocks. Kernel C enumerates each Gaussian's own bbox tiles, so it needs no
+list, never overflows and has no fallback; ``mtb`` and ``tb`` shape only the
+TPU's lists and are accepted and ignored here.
 """
 
 from __future__ import annotations
@@ -24,7 +43,7 @@ import torch
 
 from ..core.binning import select_members
 from ..core.gaussian2d import BLOCK_H, BLOCK_W, Projected, tile_bbox, tile_bounds_for
-from ..core.render_tiled import render_table
+from ..core.render_tiled import render_table, tile_grads
 from . import _build
 from .raster_binned import COLS, _build_table
 
@@ -42,24 +61,12 @@ def _default_lmax(H, W, block_h=BLOCK_H, block_w=BLOCK_W) -> int:
     return LMAX_BIG if tb_x * tb_y >= BIG_T else LMAX
 
 
-def _member_matrix(xmin, xmax, ymin, ymax, valid, tb_x, tb_y) -> torch.Tensor:
-    """[T, N] tile-membership bools, row t = ty * tb_x + tx (float compares,
-    as in the JAX function)."""
-    dev = valid.device
-    tx = torch.arange(tb_x, dtype=torch.float32, device=dev)
-    ty = torch.arange(tb_y, dtype=torch.float32, device=dev)
-    in_x = (tx[:, None] >= xmin[None, :]) & (tx[:, None] < xmax[None, :])
-    in_y = (ty[:, None] >= ymin[None, :]) & (ty[:, None] < ymax[None, :])
-    return (in_y[:, None, :] & in_x[None, :, :] & valid[None, None, :]).reshape(tb_x * tb_y, -1)
-
-
 def _table_bbox(proj: Projected, colors, opacity, H, W, kc,
                 block_h=BLOCK_H, block_w=BLOCK_W):
     """Attribute table [Np, 16] (valid column = ``proj.valid``) and float
-    tile bboxes [Np, 4], padded to a multiple of ``kc`` rows, plus the
-    [T, N] membership matrix."""
+    tile bboxes [Np, 4], padded with invalid rows to a multiple of ``kc``
+    rows (at least one past N), and (N, Np)."""
     tb_x, tb_y = tile_bounds_for(H, W, block_h, block_w)
-    T = tb_x * tb_y
     N = proj.xys.shape[0]
     table = _build_table(proj.xys, proj.conics, colors, opacity)
     table[:N, COLS - 1] = proj.valid.to(torch.float32)
@@ -71,10 +78,18 @@ def _table_bbox(proj: Projected, colors, opacity, H, W, kc,
     if Np != N + 1:
         table = torch.nn.functional.pad(table, (0, 0, 0, Np - N - 1))
         bbox = torch.nn.functional.pad(bbox, (0, 0, 0, Np - N - 1))
-    member = _member_matrix(xmin.to(torch.float32), xmax.to(torch.float32),
-                            ymin.to(torch.float32), ymax.to(torch.float32),
-                            proj.valid, tb_x, tb_y)
-    return table.contiguous(), bbox.contiguous(), member, tb_x, tb_y, T, N, Np
+    return table.contiguous(), bbox.contiguous(), N, Np
+
+
+def _bbox_members(table: torch.Tensor, bbox: torch.Tensor, tb_x: int, T: int) -> torch.Tensor:
+    """[T, Np] membership of the table rows, tested as the kernels test it:
+    the tile lies in the row's float bbox and the row is valid."""
+    t = torch.arange(T, device=table.device)
+    tx = (t % tb_x).to(torch.float32)[:, None]
+    ty = torch.div(t, tb_x, rounding_mode="floor").to(torch.float32)[:, None]
+    return ((tx >= bbox[None, :, 0]) & (tx < bbox[None, :, 1]) &
+            (ty >= bbox[None, :, 2]) & (ty < bbox[None, :, 3]) &
+            (table[None, :, COLS - 1] > 0.0))
 
 
 def _chunk_lists(member: torch.Tensor, N: int, Np: int, kc: int, lmax: int):
@@ -124,12 +139,7 @@ def chunk_list_forward_plain(table, bbox, lst, cnt, lo2, hi2, kc: int,
                         lst.to(torch.int64), torch.full_like(lst, nch, dtype=torch.int64))
     listed.scatter_(1, slots, True)
     visited = listed[:, :nch] | ((ch[None, :] >= lo2[:, None]) & (ch[None, :] < hi2[:, None]))
-    t = torch.arange(T, device=dev)
-    tx = (t % tb_x).to(torch.float32)[:, None]
-    ty = torch.div(t, tb_x, rounding_mode="floor").to(torch.float32)[:, None]
-    member = ((tx >= bbox[None, :, 0]) & (tx < bbox[None, :, 1]) &
-              (ty >= bbox[None, :, 2]) & (ty < bbox[None, :, 3]) &
-              (table[None, :, COLS - 1] > 0.0))                  # [T, Np]
+    member = _bbox_members(table, bbox, tb_x, T)                   # [T, Np]
     member &= visited.repeat_interleave(kc, dim=1)
     kmax = max(int(member.sum(dim=1).max()), 1) if T else 1
     bins = select_members(member, kmax)
@@ -198,20 +208,135 @@ def list_inputs(proj: Projected, colors, opacity, H: int, W: int, kc: int,
                 lmax: int = None):
     """Everything kernel B reads: (table, bbox, lst, cnt, lo2, hi2)."""
     lmax = _default_lmax(H, W) if lmax is None else lmax
-    table, bbox, member, _, _, _, N, Np = _table_bbox(proj, colors, opacity, H, W, kc)
+    tb_x, tb_y = tile_bounds_for(H, W)
+    table, bbox, N, Np = _table_bbox(proj, colors, opacity, H, W, kc)
+    member = _bbox_members(table, bbox, tb_x, tb_x * tb_y)
     lst, cnt, lo2, hi2 = _chunk_lists(member, N, Np, kc, lmax)
     return table, bbox, lst, cnt, lo2, hi2
 
 
+def chunk_backward_plain(table: torch.Tensor, bbox: torch.Tensor,
+                         v_img: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel C: each tile's member rows, gathered
+    in ascending order, the per-(tile, member) payload of
+    ``core/render_tiled.tile_payload`` (the gate in the forward's float64
+    emulation of the fused-multiply-add chain), summed per row by a
+    deterministic ``index_add_``. Returns the payload [Np, 16] (columns 0-8
+    live)."""
+    H, W, _ = v_img.shape
+    tb_x, tb_y = tile_bounds_for(H, W, BLOCK_H, BLOCK_W)
+    T = tb_x * tb_y
+    Np = table.shape[0]
+    member = _bbox_members(table, bbox, tb_x, T)
+    kmax = max(int(member.sum(dim=1).max()), 1) if T else 1
+    bins = select_members(member, kmax)
+    ids = torch.where(bins.mask, bins.ids.to(torch.int64),
+                      torch.full_like(bins.ids, Np, dtype=torch.int64))
+    ext = torch.cat([table, table.new_zeros((1, COLS))], dim=0)
+    acc = tile_grads(ext[ids], ids, bins.count, v_img, Np + 1)
+    payload = table.new_zeros((Np, COLS))
+    payload[:, :9] = acc[:Np]
+    return payload
+
+
+def _setup_bwd(lib):
+    lib.chunk_backward.restype = ctypes.c_int
+    lib.chunk_backward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def chunk_backward(table: torch.Tensor, bbox: torch.Tensor, v_img: torch.Tensor) -> torch.Tensor:
+    """Kernel C: table [Np, 16] and bbox [Np, 4] (as kernel B reads them)
+    and the cotangent image v_img [H, W, 3] -> the per-row gradient payload
+    [Np, 16] = ``[v_xy(2), v_conic(3, half off-diagonal), v_rgb(3),
+    v_opac, 0 x 7]``. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (built at first use) or raises."""
+    Np = table.shape[0]
+    if table.dim() != 2 or table.shape[1] != COLS:
+        raise ValueError(f"table must be [Np, {COLS}], got {tuple(table.shape)}")
+    if bbox.shape != (Np, 4):
+        raise ValueError(f"bbox must be [{Np}, 4], got {tuple(bbox.shape)}")
+    if v_img.dim() != 3 or v_img.shape[2] != 3:
+        raise ValueError(f"v_img must be [H, W, 3], got {tuple(v_img.shape)}")
+    if any(a.dtype != torch.float32 for a in (table, bbox, v_img)):
+        raise TypeError("table, bbox and v_img must be float32")
+    dev = table.device
+    if bbox.device != dev or v_img.device != dev:
+        raise ValueError("all inputs must be on one device")
+    if dev.type == "cpu":
+        return chunk_backward_plain(table, bbox, v_img)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not all(a.is_contiguous() for a in (table, bbox, v_img)):
+        raise ValueError("inputs must be contiguous")
+    H, W, _ = v_img.shape
+    tb_x, tb_y = tile_bounds_for(H, W, BLOCK_H, BLOCK_W)
+    lib = _build.load("chunk_backward", _setup_bwd)
+    out = torch.empty((Np, COLS), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.chunk_backward(table.data_ptr(), bbox.data_ptr(), v_img.data_ptr(),
+                                out.data_ptr(), Np, tb_x, tb_y, H, W, stream)
+    _build.check(rc, "chunk_backward")
+    chunk_backward.launches += 1
+    return out
+
+
+chunk_backward.launches = 0
+
+
+def split_payload(payload: torch.Tensor, N: int, opacity: torch.Tensor):
+    """Payload rows [:N] -> (v_xys, v_conics, v_colors, v_opacity)."""
+    return (payload[:N, 0:2], payload[:N, 2:5], payload[:N, 5:8],
+            payload[:N, 8].reshape(opacity.shape))
+
+
+def list_backward(proj: Projected, colors, opacity, v_img, H: int, W: int,
+                  kc: int = None, mtb: int = None, tb: int = None, layout: str = "rows"):
+    """Per-Gaussian gradients (v_xys, v_conics, v_colors, v_opacity) of the
+    chunk-list render, through kernel C. ``kc`` (default 64 for ``'rows'``,
+    128 for ``'lanes'``) sets the table padding; ``mtb`` and ``tb`` size the
+    TPU's per-chunk tile-block lists, which kernel C does not need (module
+    docstring), and are ignored."""
+    if layout not in ("rows", "lanes"):
+        raise ValueError(f"unknown layout {layout!r}")
+    kc = (KC_T if layout == "lanes" else KC) if kc is None else kc
+    table, bbox, N, _ = _table_bbox(proj, colors, opacity, H, W, kc)
+    return split_payload(chunk_backward(table, bbox, v_img.contiguous()), N, opacity)
+
+
+class _RasterizeList(torch.autograd.Function):
+    """Kernel B forward, ``list_backward`` (kernel C) backward; gradients
+    reach the centres, conics, colours and opacities."""
+
+    @staticmethod
+    def forward(ctx, xys, conics, colors, opacity, radii, valid, H, W, kc, lmax, layout):
+        proj = Projected(xys, conics, radii, torch.zeros_like(radii), valid)
+        ctx.save_for_backward(xys, conics, colors, opacity, radii, valid)
+        ctx.args = (H, W, kc, layout)
+        return chunk_list_forward(*list_inputs(proj, colors, opacity, H, W, kc, lmax), kc, H, W)
+
+    @staticmethod
+    def backward(ctx, v_img):
+        xys, conics, colors, opacity, radii, valid = ctx.saved_tensors
+        H, W, kc, layout = ctx.args
+        proj = Projected(xys, conics, radii, torch.zeros_like(radii), valid)
+        grads = list_backward(proj, colors, opacity, v_img, H, W, kc=kc, layout=layout)
+        return (*grads, None, None, None, None, None, None, None)
+
+
 def rasterize_list(proj: Projected, colors, opacity, H: int, W: int,
                    kc: int = None, lmax: int = None) -> torch.Tensor:
-    """Forward of ``rasterize_list_pallas`` (kc 64) -> unclamped [H, W, 3]."""
+    """Differentiable ``rasterize_list`` (kc 64, row-major TPU bodies #4 and
+    #6) -> unclamped [H, W, 3]."""
     kc = KC if kc is None else kc
-    return chunk_list_forward(*list_inputs(proj, colors, opacity, H, W, kc, lmax), kc, H, W)
+    return _RasterizeList.apply(proj.xys, proj.conics, colors, opacity, proj.radii,
+                                proj.valid, H, W, kc, lmax, "rows")
 
 
 def rasterize_list_t(proj: Projected, colors, opacity, H: int, W: int,
                      kc: int = None, lmax: int = None) -> torch.Tensor:
-    """Forward of ``rasterize_list_t_pallas`` (kc 128) -> unclamped [H, W, 3]."""
+    """Differentiable ``rasterize_list_t`` (kc 128, lane-major TPU bodies #5
+    and #7) -> unclamped [H, W, 3]."""
     kc = KC_T if kc is None else kc
-    return chunk_list_forward(*list_inputs(proj, colors, opacity, H, W, kc, lmax), kc, H, W)
+    return _RasterizeList.apply(proj.xys, proj.conics, colors, opacity, proj.radii,
+                                proj.valid, H, W, kc, lmax, "lanes")

@@ -1,18 +1,30 @@
-"""GaussianImage model: configuration, state and the forward render.
+"""GaussianImage model: configuration, state, forward render, growth and pruning.
 
-Port of the forward half of ``gaussianimage_plus_tpu/models/gaussian_image.py``:
-``GaussianConfig``, ``GaussianParams``, ``GaussianState``, ``effective_cov2d``
-(all three parameterizations), ``colors_of``, ``means_of``, ``project``,
-``resolve_backend``, ``render``, ``prepare_render``, ``render_prepared`` and
-``render_fast``. Every per-Gaussian buffer has ``max_num_points`` rows and an
-``active`` mask, as in the JAX package; opacity is fixed at 1.
+Port of ``gaussianimage_plus_tpu/models/gaussian_image.py``:
+``GaussianConfig``, ``GaussianParams``, ``GaussianState``, ``init_state``,
+``effective_cov2d`` (all three parameterizations), ``colors_of``,
+``means_of``, ``project``, ``resolve_backend``, ``render``,
+``prepare_render``, ``render_prepared``, ``render_fast``, ``get_attributes``,
+``psd_clamp``, ``psd_mask_effective``, ``prune`` and ``grow``. Every
+per-Gaussian buffer has ``max_num_points`` rows and an ``active`` mask, as in
+the JAX package; opacity is fixed at 1. Randomness comes from an explicit
+``torch.Generator`` (``init_state``, ``grow``); the JAX package's draws can be
+injected instead (``grow(draws=...)``), since the two generators differ.
 
-Backends: ``'pallas'`` is the binned capped kernel (kernel A), ``'xla'`` the
-plain PyTorch tiled path with the same semantics, ``'list'``/``'list_t'`` the
-cap-free chunk-list kernel (kernel B) at kc 64/128. ``'auto'`` follows the
-JAX rule on the card (``list_t`` when the tile grid divides 16, else the
-binned kernel) and gives ``'xla'`` on the CPU, as the JAX package does off the
-TPU. ``'dense'``, ``'sweep'`` and ``'range'`` are not ported yet.
+Backends: ``'pallas'`` is the binned capped kernel (kernel A, forward only:
+its backward, TPU kernel #2, is not ported, so it refuses inputs that
+require grad), ``'xla'`` the plain PyTorch tiled path with the same
+semantics and the JAX package's VJP, ``'list'``/``'list_t'`` the cap-free
+chunk-list pair at kc 64/128 (kernel B forward, kernel C backward).
+``'auto'`` follows the JAX rule on the card (``list_t`` when the tile grid
+divides 16, else the binned kernel) and gives ``'xla'`` on the CPU, as the
+JAX package does off the TPU. ``'dense'``, ``'sweep'`` and ``'range'`` are
+not ported yet.
+
+The render clamps with ``torch.minimum(torch.maximum(img, 0), 1)``, whose
+gradient at exactly 0 or 1 is one half, as ``jnp.clip``'s is
+(``torch.clamp`` would pass all of it). It matters at the first step of a fit:
+colours start at zero, so every pixel is exactly 0.
 """
 
 from __future__ import annotations
@@ -25,8 +37,8 @@ import torch
 
 from ..core.binning import bin_gaussians
 from ..core.gaussian2d import (BLOCK_H, BLOCK_W, Projected, cholesky_to_cov2d,
-                               project_gaussians_2d_covariance,
-                               scale_rot_to_cov2d, tile_bounds_for)
+                               project_gaussians_2d_covariance, psd_valid_mask,
+                               scale_rot_to_cov2d, slv_bound, tile_bounds_for)
 from ..core.render_tiled import rasterize_tiled
 from ..kernels.raster_binned import prepare_raster, rasterize_binned, rasterize_prepared_flat
 from ..kernels.raster_list import TB_T, rasterize_list, rasterize_list_t
@@ -42,6 +54,7 @@ class GaussianConfig:
     W: int = 768
     max_num_points: int = 5000
     param: str = "covariance"
+    slv: bool = True
     color_norm: bool = False
     clip_coe: float = 3.0
     radius_clip: float = 1.0
@@ -50,6 +63,9 @@ class GaussianConfig:
     block_w: int = BLOCK_W
     bin_method: str = "auto"
     raster_backend: str = "auto"
+    # 'prune': drop non-PSD points (the reference); 'clamp': project the
+    # effective covariance back onto the PSD cone after each update
+    psd_mode: str = "prune"
 
 
 class GaussianParams(NamedTuple):
@@ -65,6 +81,35 @@ class GaussianState(NamedTuple):
     active: torch.Tensor      # [M] bool
     bound: torch.Tensor       # [M, 3] per-row covariance floor
     num_active: torch.Tensor  # [] int32
+
+
+def _slv_rows(cfg: GaussianConfig, num_points, M: int, device) -> torch.Tensor:
+    """[M, 3] covariance floors: SLV rows ``[lp, 0, lp]`` at ``num_points``,
+    or the constant ``[0.5, 0, 0.5]`` without SLV."""
+    if cfg.slv:
+        lp = slv_bound(cfg.H, cfg.W, num_points).to(device)
+        row = torch.stack([lp, torch.zeros_like(lp), lp])
+    else:
+        row = torch.tensor([0.5, 0.0, 0.5], device=device)
+    return row[None, :].expand(M, 3).contiguous()
+
+
+def init_state(cfg: GaussianConfig, num_points: int,
+               generator: torch.Generator) -> GaussianState:
+    """Random init (gaussianimage_covariance.py:52-69), on the generator's
+    device: xy ~ U(0, W) x U(0, H), raw cov ~ U(0, 1)^3, colours zero, the
+    first ``num_points`` slots active, SLV rows at ``num_points``."""
+    M = cfg.max_num_points
+    dev = generator.device
+    xy = torch.rand((M, 2), generator=generator, device=dev)
+    xyz = xy * torch.tensor([float(cfg.W), float(cfg.H)], device=dev)
+    cov2d = torch.rand((M, 3), generator=generator, device=dev)
+    return GaussianState(
+        params=GaussianParams(xyz=xyz, cov2d=cov2d,
+                              features=torch.zeros((M, 3), device=dev)),
+        active=torch.arange(M, device=dev) < num_points,
+        bound=_slv_rows(cfg, num_points, M, dev),
+        num_active=torch.tensor(num_points, dtype=torch.int32, device=dev))
 
 
 def effective_cov2d(params: GaussianParams, bound: torch.Tensor,
@@ -138,6 +183,12 @@ def _inputs(state, cfg, cov_override, means_override, colors_override):
     return proj, colors, opacity
 
 
+def _clip01(img: torch.Tensor) -> torch.Tensor:
+    """``jnp.clip(img, 0, 1)``, its gradient included (one half at a tie)."""
+    zero = torch.zeros((), dtype=img.dtype, device=img.device)
+    return torch.minimum(torch.maximum(img, zero), zero + 1.0)
+
+
 def render(state: GaussianState, cfg: GaussianConfig,
            cov_override: Optional[torch.Tensor] = None,
            means_override: Optional[torch.Tensor] = None,
@@ -150,12 +201,15 @@ def render(state: GaussianState, cfg: GaussianConfig,
                                     colors_override)
     if backend in ("list", "list_t"):
         raster = rasterize_list_t if backend == "list_t" else rasterize_list
-        img = raster(proj, colors, opacity, cfg.H, cfg.W)
-        return torch.clamp(img, 0.0, 1.0)
+        return _clip01(raster(proj, colors, opacity, cfg.H, cfg.W))
     bins = bin_gaussians(proj, cfg.H, cfg.W, cap=cfg.tile_cap,
                          block_h=cfg.block_h, block_w=cfg.block_w,
                          method=cfg.bin_method)
     if backend == "pallas":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (proj.xys, proj.conics, colors)):
+            raise NotImplementedError(
+                "the binned kernel's backward (TPU kernel #2) is not ported yet; "
+                "train with raster_backend 'list_t', 'list' or 'xla'")
         img = rasterize_binned(proj.xys, proj.conics, colors, opacity,
                                bins.ids, bins.mask, cfg.H, cfg.W)
     elif backend == "xla":
@@ -163,7 +217,7 @@ def render(state: GaussianState, cfg: GaussianConfig,
                               bins.ids, bins.mask, cfg.H, cfg.W)
     else:
         raise ValueError(f"unknown raster backend {backend!r}")
-    return torch.clamp(img, 0.0, 1.0)
+    return _clip01(img)
 
 
 def prepare_render(state: GaussianState, cfg: GaussianConfig,
@@ -185,7 +239,7 @@ def prepare_render(state: GaussianState, cfg: GaussianConfig,
 
 def render_prepared(prep, cfg: GaussianConfig) -> torch.Tensor:
     """Per-frame render from a prepared table -> [H, W, 3] in [0, 1]."""
-    return torch.clamp(rasterize_prepared_flat(prep, cfg.H, cfg.W), 0.0, 1.0)
+    return _clip01(rasterize_prepared_flat(prep, cfg.H, cfg.W))
 
 
 def render_fast(state: GaussianState, cfg: GaussianConfig,
@@ -202,3 +256,109 @@ def render_fast(state: GaussianState, cfg: GaussianConfig,
             f"render_fast kernel {name!r} is not ported yet (ROADMAP queue 2)")
     return render(state, dataclasses.replace(cfg, raster_backend=sweep),
                   cov_override, means_override, colors_override)
+
+
+def get_attributes(state: GaussianState, cfg: GaussianConfig) -> dict:
+    """Host-side export of the fitted attributes of the active rows, as
+    numpy (gaussianimage_covariance.py:181-185)."""
+    active = state.active.cpu().numpy()
+    with torch.no_grad():
+        return {
+            "coords": means_of(state.params, cfg).cpu().numpy()[active],
+            "covs": effective_cov2d(state.params, state.bound, cfg).cpu().numpy()[active],
+            "colors": colors_of(state.params, cfg).cpu().numpy()[active],
+        }
+
+
+def psd_clamp(params: GaussianParams, bound: torch.Tensor, cfg: GaussianConfig,
+              margin: float = 0.995, min_var: float = 1e-3) -> GaussianParams:
+    """Project the raw covariance so that the effective one is PSD:
+    variances at least ``min_var``, the off-diagonal within ``margin *
+    sqrt(var_x * var_y)``. The other parameterizations are PSD by
+    construction and pass through."""
+    if cfg.param != "covariance":
+        return params
+    eff = params.cov2d + bound
+    a = torch.clamp(eff[:, 0], min=min_var)
+    c = torch.clamp(eff[:, 2], min=min_var)
+    lim = margin * torch.sqrt(a * c)
+    b = torch.minimum(torch.maximum(eff[:, 1], -lim), lim)
+    return params._replace(cov2d=torch.stack([a, b, c], dim=-1) - bound)
+
+
+def psd_mask_effective(state: GaussianState, cfg: GaussianConfig) -> torch.Tensor:
+    """PSD check on the effective covariance (check_non_semi_definite,
+    gaussianimage_covariance.py:373-378)."""
+    return psd_valid_mask(effective_cov2d(state.params, state.bound, cfg))
+
+
+def prune(state: GaussianState, cfg: GaussianConfig):
+    """Deactivate non-PSD Gaussians (non_semi_definite_prune, :354-371),
+    unless that would leave none (the reference's guard, :357). Returns
+    (state, number pruned) with no host synchronisation."""
+    new_active = state.active & psd_mask_effective(state, cfg)
+    n_new = new_active.sum(dtype=torch.int32)
+    do = n_new > 0
+    active = torch.where(do, new_active, state.active)
+    num_active = torch.where(do, n_new, state.num_active)
+    return state._replace(active=active, num_active=num_active), state.num_active - num_active
+
+
+def grow(state: GaussianState, cfg: GaussianConfig, render_img: torch.Tensor,
+         gt_image: torch.Tensor, generator: Optional[torch.Generator], final_fill,
+         base_num_samples: int = 1000, draws: Optional[torch.Tensor] = None):
+    """Error-guided densification under static shapes (reference
+    train.py:85-118 and densification_postfix :307-334).
+
+    The ``max_num_points`` pixels of largest error ``|render - gt|`` (summed
+    over channels) become candidates at their integer pixel coordinates,
+    with colour 0 and raw covariance ``U(0, 1)^3 + [0.5, 0, 0.5]``; those
+    whose raw covariance is not PSD are rejected; the first ``n_add``
+    candidates, ``min(base_num_samples, free)`` or all free slots when
+    ``final_fill``, fill the lowest free slots in order. SLV rows of the
+    newcomers use the post-growth count. ``draws`` [M, 3] replaces the
+    generator's ``U(0, 1)`` draws (the tests inject the JAX package's).
+    Returns (state, n_added, new_slot_mask); the caller zeroes the optimizer
+    moments at ``new_slot_mask``."""
+    M = cfg.max_num_points
+    dev = state.active.device
+    free = M - state.num_active
+    final_fill = torch.as_tensor(final_fill, device=dev)
+    n_add = torch.where(final_fill, free, torch.clamp(free, max=base_num_samples))
+
+    errors = (render_img - gt_image).abs().sum(dim=-1)                   # [H, W]
+    top_idx = torch.topk(errors.reshape(-1), M).indices
+    cand_xy = torch.stack([(top_idx % cfg.W).to(torch.float32),
+                           torch.div(top_idx, cfg.W, rounding_mode="floor").to(torch.float32)],
+                          dim=-1)
+    if draws is None:
+        draws = torch.rand((M, 3), generator=generator, device=dev)
+    cand_cov = draws.to(dev) + torch.tensor([0.5, 0.0, 0.5], device=dev)
+    rank = torch.arange(M, device=dev)
+    cand_ok = psd_valid_mask(cand_cov) & (rank < n_add)
+    n_added = cand_ok.sum(dtype=torch.int32)
+
+    order = torch.argsort((~cand_ok).to(torch.int8), stable=True)       # accepted first
+    dest = torch.argsort(state.active.to(torch.int8), stable=True)       # free slots first
+    take = rank < n_added
+
+    def scatter_rows(buf, rows):
+        out = buf.clone()
+        out[dest] = torch.where(take[:, None], rows, buf[dest])
+        return out
+
+    params = state.params
+    new_params = GaussianParams(xyz=scatter_rows(params.xyz, cand_xy[order]),
+                                cov2d=scatter_rows(params.cov2d, cand_cov[order]),
+                                features=scatter_rows(params.features,
+                                                      torch.zeros_like(params.features)))
+    active = state.active.clone()
+    active[dest] = take | state.active[dest]
+    num_active = state.num_active + n_added
+    bound = state.bound
+    if cfg.slv:
+        bound = scatter_rows(bound, _slv_rows(cfg, num_active, M, dev))
+    new_slot_mask = torch.zeros((M,), dtype=torch.bool, device=dev)
+    new_slot_mask[dest] = take
+    return (GaussianState(params=new_params, active=active, bound=bound, num_active=num_active),
+            n_added, new_slot_mask)

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Kernel A (``tile_table_forward``) and kernel B (``chunk_list_forward``) on
-synthetic scenes made with numpy from a seed: a small odd tile grid, a
-crowded tile that overflows a small cap, and a Kodak-size 768x512 scene.
+Kernel A (``tile_table_forward``), kernel B (``chunk_list_forward``) and
+kernel C (``chunk_backward``) on synthetic scenes made with numpy from a
+seed: a small odd tile grid, a crowded tile that overflows a small cap, and a
+Kodak-size 768x512 scene.
 Every test is marked ``cuda`` and skips without a card. This file imports no
 JAX, so it also runs on a machine with PyTorch alone::
 
@@ -11,7 +12,9 @@ JAX, so it also runs on a machine with PyTorch alone::
 Tolerance atol 2e-5, rtol 1e-5 at every pixel but at most 0.01% of them: the
 kernels and their plain versions evaluate sigma in the same fused-multiply-add
 order, and differ only where an ``exp`` or the colour sums round across the
-sigma >= 0 or alpha >= 1/255 gate.
+sigma >= 0 or alpha >= 1/255 gate. Kernel C: per payload column, max
+|kernel - plain| <= 1e-4 max |plain| (the gate is bit-equal; the sums over
+pixels and tiles run in another order), and two launches give the same bits.
 """
 
 import numpy as np
@@ -103,3 +106,45 @@ def test_wrappers_refuse_bad_card_inputs(card):
                                          counts, 48, 80)
     with pytest.raises(TypeError):
         raster_binned.tile_table_forward(raw.double(), counts, 48, 80)
+
+
+def _payload_close(out, ref, what):
+    torch.cuda.synchronize()
+    out = out.cpu()
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all()), what
+    assert not out[:, 9:].any(), f"{what}: padding columns not zero"
+    for j in range(9):
+        err = float((out[:, j] - ref[:, j]).abs().max())
+        assert err <= 1e-4 * float(ref[:, j].abs().max()), f"{what}: column {j} off by {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kc", [128, 64])
+@pytest.mark.parametrize("case", ["odd-grid", "kodak-size"])
+def test_chunk_backward_matches_plain(card, case, kc):
+    kw = dict(SCENES[case])
+    kw.pop("cap")
+    proj, colors, opacity = _scene(**kw)
+    H, W = kw["H"], kw["W"]
+    table, bbox, _, _ = raster_list._table_bbox(proj, colors, opacity, H, W, kc)
+    v_img = torch.as_tensor(np.random.default_rng(kc).normal(size=(H, W, 3)).astype(np.float32))
+    ref = raster_list.chunk_backward_plain(table, bbox, v_img)
+    before = raster_list.chunk_backward.launches
+    out = raster_list.chunk_backward(table.to(card), bbox.to(card), v_img.to(card))
+    assert raster_list.chunk_backward.launches == before + 1
+    _payload_close(out, ref, f"kernel C {case} kc {kc}")
+
+
+@pytest.mark.cuda
+def test_chunk_backward_is_deterministic(card):
+    kw = dict(SCENES["kodak-size"])
+    kw.pop("cap")
+    proj, colors, opacity = _scene(**kw)
+    H, W = kw["H"], kw["W"]
+    table, bbox, _, _ = raster_list._table_bbox(proj, colors, opacity, H, W, 128)
+    v_img = torch.as_tensor(np.random.default_rng(9).normal(size=(H, W, 3)).astype(np.float32))
+    args = (table.to(card), bbox.to(card), v_img.to(card))
+    first = raster_list.chunk_backward(*args)
+    second = raster_list.chunk_backward(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
