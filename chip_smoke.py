@@ -85,11 +85,12 @@ HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 # sigma (10), one exp, the opacity product and the min (3), 3 FMAs for the
 # colour sums (6)
 OPS_PER_PAIR = 19
-# kernel C, per (member, pixel) pair: 5 FMAs for sigma (10), the exp, the
-# opacity product and the min (3), the pixel features px*py and py^2 (2),
-# v_alpha = rgb . v_out (5), 3 FMAs for v_rgb (6), the sign and product of
-# v_sigma (2), an FMA for v_opac (2), 5 FMAs and an add for the moments (11)
-OPS_PER_PAIR_C = 41
+# kernel C: the gate, as in the forward, at every (member, pixel) pair on the
+# image (13); then, only where the gate passes, v_alpha = rgb . v_out (5), 3
+# FMAs for v_rgb (6), the sign and product of v_sigma (2), an FMA for v_opac
+# (2), 5 FMAs and an add for the moments (11). The pixel features px*py and
+# py^2 depend on the lane alone and are not counted, as in the forward.
+OPS_GATE_C, OPS_PASS_C = 13, 26
 PIX = 256
 C_REL = 1e-4          # kernel C: per payload column, |kernel - plain| <= C_REL max |plain|
 FIT = dict(iterations=1000, prune_iter=100, grow_iter=500)
@@ -213,12 +214,35 @@ def device_time_per_call(fn, calls: int = 10, top: int = 4):
     return sum(ms for _, ms in rows), rows[:top]
 
 
-def bound(members: int, nbytes: int, ops_per_pair: int = OPS_PER_PAIR) -> tuple[float, str]:
+def bound(ops: int, nbytes: int) -> tuple[float, str]:
     """Least time the card could take: bytes over HBM rate vs float32
     operations over the CUDA-core rate, in ms, and which one bounds."""
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = members * PIX * ops_per_pair / F32_FLOPS * 1e3
+    t_ops = ops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gate_pairs(table: torch.Tensor, bbox: torch.Tensor, h: int, w: int) -> tuple[int, int]:
+    """(member, pixel) pairs of a kernel C input: those on the image, and
+    those that pass the forward's gate there, evaluated with the plain
+    version's arithmetic (``core/render_tiled.py``)."""
+    from gaussianimage_plus_tpu_torch.core import render_tiled as rt
+    from gaussianimage_plus_tpu_torch.core.gaussian2d import tile_bounds_for
+    from gaussianimage_plus_tpu_torch.kernels.raster_list import _bbox_members
+
+    tb_x, tb_y = tile_bounds_for(h, w)
+    t, r = _bbox_members(table, bbox, tb_x, tb_x * tb_y).nonzero(as_tuple=True)
+    raw = table[r]
+    pp = torch.arange(PIX, device=table.device)
+    px, py = (pp % 16).double(), torch.div(pp, 16, rounding_mode="floor").double()
+    tx0 = ((t % tb_x) * 16).float()
+    ty0 = (torch.div(t, tb_x, rounding_mode="floor") * 16).float()
+    sigma = rt._sigma(rt._quad_coeffs(raw[:, 0], raw[:, 1], raw[:, 2], raw[:, 3] - tx0,
+                                      raw[:, 4] - ty0), px, py)
+    alpha = torch.clamp(raw[:, 8, None] * torch.exp(-sigma), max=1.0)
+    on_image = (tx0[:, None] + px.float() < w) & (ty0[:, None] + py.float() < h)
+    passing = on_image & (sigma >= 0.0) & (alpha >= rt.ALPHA_THRESHOLD)
+    return int(on_image.sum()), int(passing.sum())
 
 
 def nvidia_smi_line() -> str:
@@ -648,16 +672,21 @@ def run() -> None:
         log(f"  kernel B on kodim01, {tag}: {rows} table rows visited over {T} tiles "
             f"({rows / members_b:.1f} per member)")
         report.setdefault("kernel_b_rows_visited", {})[tag] = rows
-    bound_a, by_a = bound(members_a, bytes_a)
-    bound_b, by_b = bound(members_b, bytes_b)
+    bound_a, by_a = bound(members_a * PIX * OPS_PER_PAIR, bytes_a)
+    bound_b, by_b = bound(members_b * PIX * OPS_PER_PAIR, bytes_b)
     live = table_c[:, 15] > 0
     area = ((bbox_c[:, 1] - bbox_c[:, 0]) * (bbox_c[:, 3] - bbox_c[:, 2]))[live]
     members_c, largest_c = int(area.sum()), int(area.max())
+    on_image_c, passing_c = gate_pairs(table_c, bbox_c, cfg_fit.H, cfg_fit.W)
+    pass_frac_c = passing_c / on_image_c
     bytes_c = (2 * table_c.numel() + bbox_c.numel()) * 4 + cfg_fit.H * cfg_fit.W * 3 * 4
-    bound_c, by_c = bound(members_c, bytes_c, OPS_PER_PAIR_C)
+    bound_c, by_c = bound(on_image_c * OPS_GATE_C + passing_c * OPS_PASS_C, bytes_c)
     log(f"  kernel C on the fit state: {int(live.sum())} valid rows, {members_c} (row, tile) "
-        f"members, largest bbox {largest_c} tiles")
-    report["kernel_c_input"] = dict(rows=int(live.sum()), members=members_c, largest_bbox_tiles=largest_c)
+        f"members, largest bbox {largest_c} tiles; {on_image_c} (member, pixel) pairs on the "
+        f"image, {passing_c} ({pass_frac_c:.4%}) pass the gate")
+    report["kernel_c_input"] = dict(rows=int(live.sum()), members=members_c, largest_bbox_tiles=largest_c,
+                                    pairs_on_image=on_image_c, pairs_passing=passing_c,
+                                    pass_fraction=pass_frac_c)
     kernels = [
         dict(name="tile_table_forward", route="cuda",
              source="gaussianimage_plus_tpu_torch/csrc/tile_table_forward.cu",
@@ -690,7 +719,9 @@ def run() -> None:
              ms=times["kernel C, fit state kc 128"], plain_ms=times["plain C, fit state kc 128"],
              bound_ms=bound_c, bound_by=by_c, library_ms=None,
              shape=f"fit state after growth, table {tuple(table_c.shape)}, {int(live.sum())} "
-                   f"valid rows, {members_c} (row, tile) members, largest bbox {largest_c} tiles"),
+                   f"valid rows, {members_c} (row, tile) members, largest bbox {largest_c} tiles, "
+                   f"{passing_c} of {on_image_c} (member, pixel) pairs ({pass_frac_c:.4%}) pass "
+                   f"the gate"),
     ]
     report["kernels"] = kernels
     write_report()

@@ -32,7 +32,8 @@
 // launch lasts as long as the largest bbox.
 //
 // Bound on this card: operations — the gate (5 FMAs, an exp, a product and
-// a min) and ~20 more float32 operations per (member, pixel) pair; bytes
+// a min: 13) at every (member, pixel) pair on the image, and 26 more float32
+// operations at each pair that passes it; bytes
 // are the table, bbox and payload (<1 MB) and the image (read once from
 // memory). No tensor cores: TF32 would flip the sigma >= 0 gate.
 //

@@ -31,8 +31,8 @@ Deviation, on purpose: the TPU backward walks per-chunk tile-block lists of
 static width ``mtb`` (built from the [T, N] membership) and falls back to
 ``dense_backward`` through ``lax.cond`` when a chunk spans more than ``mtb``
 blocks. Kernel C enumerates each Gaussian's own bbox tiles, so it needs no
-list, never overflows and has no fallback; ``mtb`` and ``tb`` shape only the
-TPU's lists and are accepted and ignored here.
+list, never overflows and has no fallback. ``mtb`` and ``tb``, which size only
+the TPU's lists, are not parameters of ``list_backward`` here.
 """
 
 from __future__ import annotations
@@ -291,12 +291,10 @@ def split_payload(payload: torch.Tensor, N: int, opacity: torch.Tensor):
 
 
 def list_backward(proj: Projected, colors, opacity, v_img, H: int, W: int,
-                  kc: int = None, mtb: int = None, tb: int = None, layout: str = "rows"):
+                  kc: int = None, layout: str = "rows"):
     """Per-Gaussian gradients (v_xys, v_conics, v_colors, v_opacity) of the
     chunk-list render, through kernel C. ``kc`` (default 64 for ``'rows'``,
-    128 for ``'lanes'``) sets the table padding; ``mtb`` and ``tb`` size the
-    TPU's per-chunk tile-block lists, which kernel C does not need (module
-    docstring), and are ignored."""
+    128 for ``'lanes'``) sets the table padding."""
     if layout not in ("rows", "lanes"):
         raise ValueError(f"unknown layout {layout!r}")
     kc = (KC_T if layout == "lanes" else KC) if kc is None else kc
@@ -305,23 +303,23 @@ def list_backward(proj: Projected, colors, opacity, v_img, H: int, W: int,
 
 
 class _RasterizeList(torch.autograd.Function):
-    """Kernel B forward, ``list_backward`` (kernel C) backward; gradients
-    reach the centres, conics, colours and opacities."""
+    """Kernel B forward, kernel C backward on the table and bbox the forward
+    built; gradients reach the centres, conics, colours and opacities."""
 
     @staticmethod
-    def forward(ctx, xys, conics, colors, opacity, radii, valid, H, W, kc, lmax, layout):
+    def forward(ctx, xys, conics, colors, opacity, radii, valid, H, W, kc, lmax):
         proj = Projected(xys, conics, radii, torch.zeros_like(radii), valid)
-        ctx.save_for_backward(xys, conics, colors, opacity, radii, valid)
-        ctx.args = (H, W, kc, layout)
-        return chunk_list_forward(*list_inputs(proj, colors, opacity, H, W, kc, lmax), kc, H, W)
+        inputs = list_inputs(proj, colors, opacity, H, W, kc, lmax)
+        ctx.save_for_backward(*inputs[:2], opacity)
+        ctx.n = xys.shape[0]
+        return chunk_list_forward(*inputs, kc, H, W)
 
     @staticmethod
     def backward(ctx, v_img):
-        xys, conics, colors, opacity, radii, valid = ctx.saved_tensors
-        H, W, kc, layout = ctx.args
-        proj = Projected(xys, conics, radii, torch.zeros_like(radii), valid)
-        grads = list_backward(proj, colors, opacity, v_img, H, W, kc=kc, layout=layout)
-        return (*grads, None, None, None, None, None, None, None)
+        table, bbox, opacity = ctx.saved_tensors
+        payload = chunk_backward(table, bbox, v_img.contiguous())
+        return (*split_payload(payload, ctx.n, opacity),
+                None, None, None, None, None, None)
 
 
 def rasterize_list(proj: Projected, colors, opacity, H: int, W: int,
@@ -330,7 +328,7 @@ def rasterize_list(proj: Projected, colors, opacity, H: int, W: int,
     #6) -> unclamped [H, W, 3]."""
     kc = KC if kc is None else kc
     return _RasterizeList.apply(proj.xys, proj.conics, colors, opacity, proj.radii,
-                                proj.valid, H, W, kc, lmax, "rows")
+                                proj.valid, H, W, kc, lmax)
 
 
 def rasterize_list_t(proj: Projected, colors, opacity, H: int, W: int,
@@ -339,4 +337,4 @@ def rasterize_list_t(proj: Projected, colors, opacity, H: int, W: int,
     and #7) -> unclamped [H, W, 3]."""
     kc = KC_T if kc is None else kc
     return _RasterizeList.apply(proj.xys, proj.conics, colors, opacity, proj.radii,
-                                proj.valid, H, W, kc, lmax, "lanes")
+                                proj.valid, H, W, kc, lmax)

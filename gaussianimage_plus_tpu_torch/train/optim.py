@@ -57,8 +57,8 @@ class Adam:
         mu = tuple((1 - b1) * g + b1 * m for g, m in zip(grads, state.mu))
         nu = tuple((1 - b2) * (g * g) + b2 * v for g, v in zip(grads, state.nu))
         c = count.to(torch.float32)
-        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=c.device), c)
-        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=c.device), c)
+        bc1 = 1 - torch.pow(b1, c)
+        bc2 = 1 - torch.pow(b2, c)
         step = -self.schedule(state.count)
         updates = tuple(step * ((m / bc1) / (torch.sqrt(v / bc2) + self.eps))
                         for m, v in zip(mu, nu))
