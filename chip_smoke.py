@@ -7,25 +7,34 @@ Run from the root of a checkout, on a machine with one NVIDIA card::
 
 It decodes every committed bitstream and renders every committed fitted
 state through the port's entry points, on the card, at the flagship
-configuration (768x512, ~5000 Gaussians, per-tile cap 256), fits one 768x512
-image with the trainer, and holds the three hand-written CUDA kernels against
-their plain PyTorch versions. Phases:
+configuration (768x512, ~5000 Gaussians, per-tile cap 256), fits 768x512
+images through the cap-free and the binned trainers, a 752x496 crop (an odd
+tile grid) and a 2040x1344 image (20,000 Gaussians), and holds the five
+hand-written CUDA kernels against their plain PyTorch versions. Phases:
 
 1. card: name and power limit from ``nvidia-smi``, checked against torch;
-2. build: the three kernels from ``csrc/``, one ``nvcc`` per source, together;
+2. build: the five kernels from ``csrc/``, one ``nvcc`` per source, together;
 3. kernel vs plain version on the card, at full width: kernel A
    (``tile_table_forward``) on kodim01's binned table, untrimmed (cap 256)
    and trimmed (bin-once); kernel B (``chunk_list_forward``) on a fitted
-   state at kc 128 and kc 64 and on kodim01 in Morton order; both on a
-   synthetic 500x760 grid. Tolerance: ``|kernel - plain| <= 2e-5 +
+   state at kc 128 and kc 64 and on kodim01 in Morton order, and over the
+   dense, sweep and range enumerations on kodim01 in stream and Morton order
+   and on the fitted state; both on a synthetic 500x760 grid. Tolerance: ``|kernel - plain| <= 2e-5 +
    1e-5 |plain|`` at every pixel but at most 0.01% of them, where the two
    evaluations of the expanded quadratic may round across the sigma >= 0 or
    alpha >= 1/255 gate. Kernel C (``chunk_backward``) on a fitted state in
    Morton order at kc 128 and kc 64, on kodim01 in stream order, through
-   ``dense_backward``, and on the synthetic grid, each with the L2 cotangent
-   ``2 (render - gt) / (3 H W)`` and a seeded normal one. Tolerance, per
-   payload column: ``max |kernel - plain| <= 1e-4 max |plain|`` (the gate is
-   bit-equal, the sums run in another order); two launches give the same bits;
+   ``dense_backward``, and on the synthetic grid; kernel D
+   (``tile_table_backward``) on kodim01's binned table, on the synthetic grid
+   (ragged edge tiles), on a synthetic tile forced over its cap, and (after
+   phase 4) on the binned fit state after growth and on the 2K state; each
+   with the L2 cotangent ``2 (render - target) / (3 H W)`` and a seeded normal
+   one. Tolerance, per payload column: ``max |kernel - plain| <= 1e-4 max
+   |plain|`` (the gate is bit-equal, the sums run in another order); two
+   launches give the same bits. Kernel E (``tile_bin``) against the
+   ``'top_k'`` selection on kodim01's fitted state, the synthetic tile over
+   its cap and (after phase 4) the fit and 2K states: ids, mask and count
+   equal exactly, and equal to ``'hier'`` wherever its ``super_overflow`` is 0;
 4. main paths, each with every launch count set to 0 just before it and read
    just after. Decode: each of the 57 committed streams
    (``results/bitstreams*/``: 48 lsq Kodak streams of rounds 3 and 4, 6 with
@@ -46,14 +55,30 @@ their plain PyTorch versions. Phases:
    Gaussians; finite PSNRs; best PSNR at least 5 dB above the first step's.
    Then 100 steps from one initial state through ``'auto'`` (kernels B and C)
    and through ``'xla'`` (the plain binned path and its VJP, cap 256, no
-   tile over the cap): their PSNRs agree within 0.05 dB at every step;
+   tile over the cap): their PSNRs agree within 0.05 dB at every step.
+   (a) Binned fit: the same fit through ``raster_backend='pallas'``,
+   ``bin_method='pallas'`` (kernels A, D and E once a step each; grows; best
+   PSNR 5 dB above the first step's). (b) The same 100 steps through
+   ``'pallas'`` + kernel E: within 0.05 dB of ``'xla'`` at every step.
+   (c) Odd grid: ``fit_image`` of the top-left 496x752 crop (47x31 = 1457
+   tiles), ``'auto'`` asserted to resolve to ``'pallas'``, 2500 Gaussians of at
+   most 5000, 200 steps, a prune every 100 (kernel D once a step; best PSNR 3
+   dB above the first step's). (d) 2K: ``fit_image`` at 1344x2040 with 20,000
+   Gaussians, 100 steps through ``'pallas'``, ``bin_method='auto'`` asserted
+   to pick ``'hier'``; the target is ``bench.py``'s seeded block image, made
+   with numpy (finite losses; ``super_overflow`` reported). (e) Every fitted
+   state through ``render_fast`` with the dense, sweep and range kernels
+   against ``'list_t'`` (the forward tolerance), and one state's gradients
+   through ``render`` with ``'dense'`` and ``'sweep'`` against ``'list_t'``'s
+   (kernel C's tolerance, per parameter column);
 5. timing with CUDA events: per frame (median of 50 frames) of the full
    decodes (parse included), the bin-once ``decode_frame`` and a fitted-state
    render; per train step (median of 50) after the growth, through ``'auto'``
-   (kernels B and C) and through ``'xla'`` (the plain path); per call (50 calls
-   back to back, median of 5 runs) of each kernel and each plain version on
-   the card; and the device time of a full decode and of a train step under
-   ``torch.profiler``, and of a train step through each of the two backends.
+   (kernels B and C), ``'xla'`` (the plain path) and ``'pallas'`` with
+   ``'top_k'`` and with kernel E binning, and the 2K step; per call (50 calls
+   back to back, median of 5 runs) of each kernel, each plain version and
+   ``torch.topk`` on kernel E's key; and the device time of a full decode and
+   of each train step under ``torch.profiler``.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, ...}``. Any
@@ -96,6 +121,10 @@ C_REL = 1e-4          # kernel C: per payload column, |kernel - plain| <= C_REL 
 FIT = dict(iterations=1000, prune_iter=100, grow_iter=500)
 FIT_POINTS, FIT_SEED = 2500, 3047
 AGREE_STEPS, AGREE_DB = 100, 0.05
+ODD_HW, ODD_FIT, ODD_RISE_DB = (496, 752), dict(iterations=200, prune_iter=100), 3.0
+K2_HW, K2_POINTS, K2_STEPS = (1344, 2040), 20_000, 100
+# kernel E: integer compares per (tile, Gaussian) bbox test
+OPS_BIN_TEST = 4
 
 report: dict = {"phases": {}}
 
@@ -222,27 +251,56 @@ def bound(ops: int, nbytes: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def gate_pairs(table: torch.Tensor, bbox: torch.Tensor, h: int, w: int) -> tuple[int, int]:
-    """(member, pixel) pairs of a kernel C input: those on the image, and
-    those that pass the forward's gate there, evaluated with the plain
-    version's arithmetic (``core/render_tiled.py``)."""
+def gate_counts(t: torch.Tensor, rows: torch.Tensor, h: int, w: int) -> tuple[int, int]:
+    """(member, pixel) pairs of the (tile ``t``, table row ``rows``) members:
+    those on the image, and those that pass the forward's gate there,
+    evaluated with the plain version's arithmetic (``core/render_tiled.py``)."""
     from gaussianimage_plus_tpu_torch.core import render_tiled as rt
+    from gaussianimage_plus_tpu_torch.core.gaussian2d import tile_bounds_for
+
+    tb_x, _ = tile_bounds_for(h, w)
+    pp = torch.arange(PIX, device=rows.device)
+    px, py = (pp % 16).double(), torch.div(pp, 16, rounding_mode="floor").double()
+    tx0 = ((t % tb_x) * 16).float()
+    ty0 = (torch.div(t, tb_x, rounding_mode="floor") * 16).float()
+    sigma = rt._sigma(rt._quad_coeffs(rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3] - tx0,
+                                      rows[:, 4] - ty0), px, py)
+    alpha = torch.clamp(rows[:, 8, None] * torch.exp(-sigma), max=1.0)
+    on_image = ((tx0[:, None] + px.float() < w) & (ty0[:, None] + py.float() < h)
+                & (rows[:, 15, None] > 0))
+    passing = on_image & (sigma >= 0.0) & (alpha >= rt.ALPHA_THRESHOLD)
+    return int(on_image.sum()), int(passing.sum())
+
+
+def gate_pairs(table: torch.Tensor, bbox: torch.Tensor, h: int, w: int) -> tuple[int, int]:
+    """``gate_counts`` of a kernel C input (bbox members of the table rows)."""
     from gaussianimage_plus_tpu_torch.core.gaussian2d import tile_bounds_for
     from gaussianimage_plus_tpu_torch.kernels.raster_list import _bbox_members
 
     tb_x, tb_y = tile_bounds_for(h, w)
     t, r = _bbox_members(table, bbox, tb_x, tb_x * tb_y).nonzero(as_tuple=True)
-    raw = table[r]
-    pp = torch.arange(PIX, device=table.device)
-    px, py = (pp % 16).double(), torch.div(pp, 16, rounding_mode="floor").double()
-    tx0 = ((t % tb_x) * 16).float()
-    ty0 = (torch.div(t, tb_x, rounding_mode="floor") * 16).float()
-    sigma = rt._sigma(rt._quad_coeffs(raw[:, 0], raw[:, 1], raw[:, 2], raw[:, 3] - tx0,
-                                      raw[:, 4] - ty0), px, py)
-    alpha = torch.clamp(raw[:, 8, None] * torch.exp(-sigma), max=1.0)
-    on_image = (tx0[:, None] + px.float() < w) & (ty0[:, None] + py.float() < h)
-    passing = on_image & (sigma >= 0.0) & (alpha >= rt.ALPHA_THRESHOLD)
-    return int(on_image.sum()), int(passing.sum())
+    return gate_counts(t, table[r], h, w)
+
+
+def gate_slots(raw: torch.Tensor, counts: torch.Tensor, h: int, w: int) -> tuple[int, int]:
+    """``gate_counts`` of a kernel D input (the live slots of the table)."""
+    live = torch.arange(raw.shape[1], device=raw.device)[None, :] < counts[:, None]
+    t, k = live.nonzero(as_tuple=True)
+    return gate_counts(t, raw[t, k], h, w)
+
+
+def scanned_ids(bbox: torch.Tensor, tb_x: int, tb_y: int, cap: int) -> int:
+    """Bbox tests kernel E's input needs: per tile every id, or up to the
+    cap-th member where a tile has that many."""
+    t = torch.arange(tb_x * tb_y, device=bbox.device)
+    tx, ty = (t % tb_x)[:, None], torch.div(t, tb_x, rounding_mode="floor")[:, None]
+    member = ((tx >= bbox[None, :, 0]) & (tx < bbox[None, :, 1]) &
+              (ty >= bbox[None, :, 2]) & (ty < bbox[None, :, 3]))
+    rank = member.to(torch.int32).cumsum(dim=1)
+    reached = rank >= cap
+    first = torch.where(reached.any(1), reached.to(torch.int8).argmax(1) + 1,
+                        torch.full_like(t, bbox.shape[0]))
+    return int(first.sum())
 
 
 def nvidia_smi_line() -> str:
@@ -286,17 +344,31 @@ def run() -> None:
     from gaussianimage_plus_tpu_torch.compress.pipeline import (
         _decode_attributes, decode_frame, morton_reorder, prepare_decode)
     from gaussianimage_plus_tpu_torch.core.binning import bin_gaussians, morton_perm
-    from gaussianimage_plus_tpu_torch.core.gaussian2d import project_gaussians_2d_covariance
+    from gaussianimage_plus_tpu_torch.core.gaussian2d import (project_gaussians_2d_covariance,
+                                                              tile_bounds_for)
     from gaussianimage_plus_tpu_torch.core.render_dense import render_dense
     from gaussianimage_plus_tpu_torch.interop import config_from_numpy, state_from_numpy
-    from gaussianimage_plus_tpu_torch.kernels import _build, raster_binned, raster_dense, raster_list
+    from gaussianimage_plus_tpu_torch.kernels import (_build, binning_tiles, raster_binned,
+                                                      raster_dense, raster_list)
     from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
     from gaussianimage_plus_tpu_torch.train import trainer as tr
 
     kernel_a, kernel_b = raster_binned.tile_table_forward, raster_list.chunk_list_forward
     plain_a, plain_b = raster_binned.tile_table_forward_plain, raster_list.chunk_list_forward_plain
     kernel_c, plain_c = raster_list.chunk_backward, raster_list.chunk_backward_plain
-    kernels_abc = (kernel_a, kernel_b, kernel_c)
+    kernel_d, plain_d = raster_binned.tile_table_backward, raster_binned.tile_table_backward_plain
+    kernel_e, plain_e = binning_tiles.tile_bin, binning_tiles.tile_bin_plain
+    kernels = {"a": kernel_a, "b": kernel_b, "c": kernel_c, "d": kernel_d, "e": kernel_e}
+    path_launches: dict = {}
+
+    def reset_launches() -> None:
+        for k in kernels.values():
+            k.launches = 0
+
+    def read_launches(path: str) -> dict:
+        n = {key: k.launches for key, k in kernels.items()}
+        path_launches[path] = n
+        return n
     dev = torch.device("cuda")
 
     # ---- 1. card
@@ -310,9 +382,10 @@ def run() -> None:
 
     # ---- 2. build
     t0 = time.perf_counter()
-    ptxas = _build.build_all(["tile_table_forward", "chunk_list_forward", "chunk_backward"])
+    ptxas = _build.build_all(["tile_table_forward", "chunk_list_forward", "chunk_backward",
+                              "tile_table_backward", "tile_bin"])
     build_s = time.perf_counter() - t0
-    log(f"[2] built the three kernels in {build_s:.1f} s (sm_90a, one nvcc per source)")
+    log(f"[2] built the five kernels in {build_s:.1f} s (sm_90a, one nvcc per source)")
     for name, text in ptxas.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
@@ -339,7 +412,7 @@ def run() -> None:
 
     # ---- 3. kernel vs plain, full width
     log("[3] kernels against their plain versions on the card")
-    err = {"a": 0.0, "b": 0.0, "c": 0.0}
+    err = {"a": 0.0, "b": 0.0, "c": 0.0, "d": 0.0, "e": 0.0}
     _, dec01 = decode_bitstream(kodim01, device=dev)
     cfg01 = stream_cfg(dec01)
     H, W = cfg01.H, cfg01.W
@@ -367,6 +440,25 @@ def run() -> None:
     inp_m = raster_list.list_inputs(proj_m, col_m, ones_m, H, W, 128)
     err["b"] = max(err["b"], compare("B kodim01 Morton order kc 128",
                                      kernel_b(*inp_m, 128, H, W), plain_b(*inp_m, 128, H, W)))
+    # kernel B over the dense, sweep and range enumerations (the chunks the
+    # three TPU kernels visit, the range's through the residual interval):
+    # kodim01 in stream and Morton order (kept for the timings) and a fitted state
+    enum_inputs = {}
+    for order, (proj_, col_, ones_), (h_, w_), timed in (
+            ("stream order", stream_inputs(dec01, cfg01), (H, W), True),
+            ("Morton order", (proj_m, col_m, ones_m), (H, W), True),
+            (f"{states[0].parent.name}/{states[0].stem}", (proj_s, col_s, ones_s),
+             (cfg_s.H, cfg_s.W), False)):
+        for kname, kc, lists in (("dense", raster_dense.DENSE_KC, raster_dense.dense_lists),
+                                 ("sweep", raster_dense.SWEEP_KC, raster_dense.sweep_lists),
+                                 ("range", raster_dense.SWEEP_KC, raster_dense.range_lists)):
+            table_, bbox_, n_, np_ = raster_list._table_bbox(proj_, col_, ones_, h_, w_, kc)
+            inp_ = (table_, bbox_) + tuple(lists(table_, bbox_, n_, np_, kc, h_, w_))
+            err["b"] = max(err["b"], compare(f"B {order} {kname} kc {kc}",
+                                             kernel_b(*inp_, kc, h_, w_),
+                                             plain_b(*inp_, kc, h_, w_)))
+            if timed:
+                enum_inputs[(kname, order)] = (inp_, kc)
 
     # synthetic odd grid: 500x760 (32x48 tiles, ragged last row of tiles)
     rng = np.random.default_rng(0)
@@ -435,20 +527,82 @@ def run() -> None:
         v_xy, v_con, v_col, v_op = grads
         return torch.cat([v_xy, v_con, v_col, v_op[:, None], v_xy.new_zeros((v_xy.shape[0], 7))], 1)
 
-    t64, b64, _, _ = raster_list._table_bbox(proj_sm, col_sm, ones_sm, cfg_s.H, cfg_s.W,
-                                             raster_list.KC)
+    t128, b128, _, _ = raster_list._table_bbox(proj_sm, col_sm, ones_sm, cfg_s.H, cfg_s.W,
+                                               raster_dense.DENSE_KC)
     err["c"] = max(err["c"], compare_payload(
         "C dense_backward, fitted state Morton, L2 cotangent",
         lambda cot: packed(raster_dense.dense_backward(proj_sm, col_sm, ones_sm, cot, cfg_s.H, cfg_s.W)),
-        lambda cot: packed(raster_list.split_payload(plain_c(t64, b64, cot), n_s, ones_sm)),
+        lambda cot: packed(raster_list.split_payload(plain_c(t128, b128, cot), n_s, ones_sm)),
         (cot_sm["L2"],)))
     compare_c("synthetic 500x760", proj_o, col_o, Ho, Wo, 128,
               {"normal": normal_cotangent(Ho, Wo, 3)})
 
+    # kernel D on binned tables (cap 256), kernel E against 'top_k' and 'hier'
+    def d_inputs(proj, colors, h, w, bins=None):
+        if bins is None:
+            bins = bin_gaussians(proj, h, w, cap=256)
+        n = proj.xys.shape[0]
+        raw, counts = raster_binned._prepare(proj.xys, proj.conics, colors,
+                                             torch.ones((n,), device=dev), bins.ids, bins.mask)
+        ids = raster_binned._slot_ids(bins.ids, bins.mask, n).to(torch.int32).contiguous()
+        bbox = raster_binned.tile_bbox_table(proj.xys, proj.radii, tile_bounds_for(h, w))
+        return raw, counts, ids, bbox
+
+    def compare_d(tag, proj, colors, h, w, cotangents, bins=None):
+        inp = d_inputs(proj, colors, h, w, bins)
+        for ctag, cot in cotangents.items():
+            err["d"] = max(err["d"], compare_payload(f"D {tag}, {ctag} cotangent",
+                                                     kernel_d, plain_d, (*inp, cot)))
+        return inp
+
+    def compare_e(tag, proj, h, w, cap=256):
+        tb_ = tile_bounds_for(h, w)
+        bbox = binning_tiles.tile_bbox_table(proj.xys, proj.radii, tb_, proj.valid)
+        ids, count = kernel_e(bbox, *tb_, cap)
+        ref = bin_gaussians(proj, h, w, cap=cap, method="top_k")
+        hier = bin_gaussians(proj, h, w, cap=cap, method="hier")
+        sync()
+        mask = torch.arange(cap, device=dev)[None, :] < count[:, None]
+        check(torch.equal(ids, ref.ids) and torch.equal(mask, ref.mask)
+              and torch.equal(count, ref.count), f"E {tag}: differs from 'top_k'")
+        overflow = int(hier.super_overflow)
+        same_hier = (torch.equal(ids, hier.ids) and torch.equal(mask, hier.mask)
+                     and torch.equal(count, hier.count))
+        check(same_hier or overflow > 0, f"E {tag}: differs from 'hier' without super overflow")
+        log(f"  E {tag}: ids, mask and count equal 'top_k' ({int(count.sum())} members, at most "
+            f"{int(count.max())} in a tile); 'hier' super_overflow {overflow}, "
+            f"{'equal' if same_hier else 'differs'}")
+        report["phases"].setdefault("kernel_vs_plain", []).append(
+            dict(name=f"E {tag}", equal_top_k=True, hier_super_overflow=overflow,
+                 equal_hier=same_hier))
+        return bbox
+
+    compare_d("kodim01 stream order", proj01_s, col01_s, H, W,
+              {"L2": l2_cotangent(img01_s), "normal": normal_cotangent(H, W, 4)})
+    r_o = np.random.default_rng(5)
+    target_o = torch.as_tensor(r_o.uniform(0, 1, (Ho, Wo, 3)).astype(np.float32), device=dev)
+    with torch.no_grad():
+        img_o = torch.clamp(kernel_a(raw_o, counts_o, Ho, Wo), 0, 1)
+    compare_d("synthetic 500x760", proj_o, col_o, Ho, Wo,
+              {"L2": l2_cotangent(img_o, target_o), "normal": normal_cotangent(Ho, Wo, 6)})
+    # a tile forced over its cap: 400 centres inside the tile at (80, 80)
+    xy_c = xy.copy()
+    xy_c[:400] = np.float32(80.0) + r_o.uniform(0.2, 15.8, (400, 2)).astype(np.float32)
+    proj_c = project_gaussians_2d_covariance(torch.as_tensor(xy_c, device=dev), cov, Ho, Wo)
+    bins_c = bin_gaussians(proj_c, Ho, Wo, cap=256)
+    most_c = int(bin_gaussians(proj_c, Ho, Wo, cap=2048).count.max())
+    check(most_c > 256 and int(bins_c.count.max()) == 256, f"over-cap case: {most_c} in a tile")
+    log(f"  over-cap case: {most_c} members in the crowded tile, cap 256")
+    compare_d(f"synthetic over cap ({most_c} in a tile)", proj_c, col_o, Ho, Wo,
+              {"normal": normal_cotangent(Ho, Wo, 7)}, bins_c)
+    compare_e(f"synthetic over cap ({most_c} in a tile)", proj_c, Ho, Wo)
+    st_gt = state_from_numpy(d_gt, device=dev)
+    proj_gt = gi.project(st_gt.params, st_gt.active, st_gt.bound, cfg_gt)
+    compare_e("repr_states_plain/kodim01", proj_gt, cfg_gt.H, cfg_gt.W)
+
     # ---- 4. main paths
     log("[4] main path: decode every committed stream, render every fitted state")
-    for k in kernels_abc:
-        k.launches = 0
+    reset_launches()
     t_main = time.perf_counter()
     agree_max = 0.0
     capped = []
@@ -502,7 +656,7 @@ def run() -> None:
             capped.append(name)
     sync()
     main_s = time.perf_counter() - t_main
-    launches = {"a": kernel_a.launches, "b": kernel_b.launches}
+    launches = read_launches("decode and render")
     log(f"  {len(streams)} streams x 3 decode paths and {len(states)} states x 2 backends "
         f"in {main_s:.1f} s; launches: tile_table_forward {launches['a']}, "
         f"chunk_list_forward {launches['b']}; capped and cap-free paths agree to "
@@ -522,36 +676,49 @@ def run() -> None:
           f"fit: 'auto' resolved to {gi.resolve_backend(cfg_fit, dev)!r}")
     log(f"[4] main path: fit_image of the render of results/repr_states_plain/kodim01.npz, "
         f"{FIT_POINTS} Gaussians up to {cfg_fit.max_num_points}, {FIT}")
-    for k in kernels_abc:
-        k.launches = 0
-    t_fit = time.perf_counter()
-    res = tr.fit_image(fit_target, cfg_fit, tcfg, FIT_POINTS, seed=FIT_SEED, device=dev)
-    sync()
-    fit_s = time.perf_counter() - t_fit
-    launches_fit = {"a": kernel_a.launches, "b": kernel_b.launches, "c": kernel_c.launches}
-    hist = {k: v.cpu().numpy() for k, v in res.history.items()}
-    psnr = hist["psnr"]
-    g = FIT["grow_iter"] // FIT["prune_iter"] - 1                # the chunk that grows
-    n_before, n_after = int(hist["num_active"][g] - hist["n_added"][g]), int(hist["num_active"][g])
-    at = {s_: float(psnr[s_ - 1]) for s_ in (1, 100, 500, 1000)}
-    log(f"  {FIT['iterations']} steps in {fit_s:.1f} s; launches: tile_table_forward "
-        f"{launches_fit['a']}, chunk_list_forward {launches_fit['b']}, chunk_backward "
-        f"{launches_fit['c']}; PSNR at steps " + "/".join(map(str, at)) + ": "
-        + " / ".join(f"{v:.4f}" for v in at.values())
-        + f" dB; best {res.best_psnr:.4f} dB at step {res.best_iter}; active "
-        f"{n_before} -> {n_after} at the growth, {int(res.state.num_active)} in the best state; "
-        f"pruned {int(hist['n_pruned'].sum())} in all")
-    report["phases"]["fit"] = dict(seconds=fit_s, launches=launches_fit, psnr_at=at,
-                                   best_psnr=res.best_psnr, best_iter=res.best_iter,
-                                   active_before_growth=n_before, active_after_growth=n_after,
-                                   num_active_per_chunk=hist["num_active"].tolist(),
-                                   pruned=int(hist["n_pruned"].sum()))
+    def run_fit(tag, target, cfg, fit, points, rise_db, grows):
+        """``fit_image`` as one main path, with its checks; returns
+        (result, launches)."""
+        tc = tr.TrainConfig(**fit)
+        reset_launches()
+        t_fit = time.perf_counter()
+        res_ = tr.fit_image(target, cfg, tc, points, seed=FIT_SEED, device=dev)
+        sync()
+        fit_s = time.perf_counter() - t_fit
+        n = read_launches(tag)
+        hist = {k: v.cpu().numpy() for k, v in res_.history.items()}
+        psnr_ = hist["psnr"]
+        steps = fit["iterations"]
+        at = {s_: float(psnr_[s_ - 1]) for s_ in sorted({1, min(100, steps), steps // 2, steps})}
+        grow_note = ""
+        info = dict(seconds=fit_s, launches=n, psnr_at=at, best_psnr=res_.best_psnr,
+                    best_iter=res_.best_iter, num_active_per_chunk=hist["num_active"].tolist(),
+                    pruned=int(hist["n_pruned"].sum()))
+        if grows:
+            g = fit["grow_iter"] // fit["prune_iter"] - 1        # the chunk that grows
+            n_before = int(hist["num_active"][g] - hist["n_added"][g])
+            n_after = int(hist["num_active"][g])
+            grow_note = f"active {n_before} -> {n_after} at the growth, "
+            info.update(active_before_growth=n_before, active_after_growth=n_after)
+            check(n_after > n_before, f"{tag}: the growth did not add Gaussians "
+                  f"({n_before} -> {n_after})")
+        log(f"  {tag}: {steps} steps in {fit_s:.1f} s; launches: "
+            + ", ".join(f"{k.__name__} {n[key]}" for key, k in kernels.items())
+            + "; PSNR at steps " + "/".join(map(str, at)) + ": "
+            + " / ".join(f"{v:.4f}" for v in at.values())
+            + f" dB; best {res_.best_psnr:.4f} dB at step {res_.best_iter}; {grow_note}"
+            f"{int(res_.state.num_active)} in the best state; pruned "
+            f"{int(hist['n_pruned'].sum())} in all")
+        report["phases"][tag] = info
+        check(bool(np.isfinite(hist["loss"]).all() and np.isfinite(psnr_).all()),
+              f"{tag}: non-finite loss or PSNR")
+        check(res_.best_psnr >= psnr_[0] + rise_db, f"{tag}: best PSNR {res_.best_psnr:.3f} dB "
+              f"is not {rise_db} dB above the first step's {psnr_[0]:.3f} dB")
+        return res_, n
+
+    res, launches_fit = run_fit("fit", fit_target, cfg_fit, FIT, FIT_POINTS, 5.0, True)
     check(launches_fit["c"] == FIT["iterations"], f"fit: kernel C launched {launches_fit['c']} times")
     check(launches_fit["b"] >= FIT["iterations"], f"fit: kernel B launched {launches_fit['b']} times")
-    check(n_after > n_before, f"fit: the growth did not add Gaussians ({n_before} -> {n_after})")
-    check(bool(np.isfinite(psnr).all()), "fit: non-finite PSNR")
-    check(res.best_psnr >= psnr[0] + 5.0, f"fit: best PSNR {res.best_psnr:.3f} dB is not 5 dB "
-          f"above the first step's {psnr[0]:.3f} dB")
 
     # the same 100 steps through kernels B + C and through the plain binned path
     ts0 = tr.init_train_state(cfg_fit, tcfg, FIT_POINTS, seed=FIT_SEED + 1, device=dev)
@@ -560,10 +727,14 @@ def run() -> None:
                              cfg_fit.W, cap=cfg_fit.tile_cap + 1).count.max())
     check(most <= cfg_fit.tile_cap, f"agreement run: a tile holds {most} > cap at init")
     agree_psnr = {}
-    for backend in ("auto", "xla"):
-        _, m = tr.train_chunk(ts0, fit_target, dataclasses.replace(cfg_fit, raster_backend=backend),
-                              tcfg, AGREE_STEPS, False, False)
+    cfg_bin = dataclasses.replace(cfg_fit, raster_backend="pallas", bin_method="pallas")
+    for backend, cfg in (("auto", dataclasses.replace(cfg_fit, raster_backend="auto")),
+                         ("xla", dataclasses.replace(cfg_fit, raster_backend="xla")),
+                         ("pallas", cfg_bin)):
+        reset_launches()
+        _, m = tr.train_chunk(ts0, fit_target, cfg, tcfg, AGREE_STEPS, False, False)
         agree_psnr[backend] = m["psnr"].cpu().numpy()
+        read_launches(f"{AGREE_STEPS} steps {backend}")
     agree_db = float(np.abs(agree_psnr["auto"] - agree_psnr["xla"]).max())
     log(f"  {AGREE_STEPS} steps 'auto' (kernels B + C) vs 'xla' (plain, cap 256, at most {most} "
         f"in a tile at init): PSNR {agree_psnr['auto'][-1]:.4f} vs {agree_psnr['xla'][-1]:.4f} dB "
@@ -572,6 +743,126 @@ def run() -> None:
                                            psnr_auto=agree_psnr["auto"].tolist(),
                                            psnr_xla=agree_psnr["xla"].tolist())
     check(agree_db <= AGREE_DB, f"'auto' and 'xla' fits differ by {agree_db:.3g} dB")
+
+    # (a) the binned fit: kernels A, D and E once a step
+    log(f"[4] main path (a): the same fit through raster_backend='pallas', bin_method='pallas'")
+    res_bin, launches_bin = run_fit("binned fit", fit_target, cfg_bin, FIT, FIT_POINTS, 5.0, True)
+    for key in "ade":
+        check(launches_bin[key] == FIT["iterations"],
+              f"binned fit: kernel {key.upper()} launched {launches_bin[key]} times")
+
+    # (b) 'pallas' + kernel E against 'xla' + 'top_k': one capped function
+    n_b = path_launches[f"{AGREE_STEPS} steps pallas"]
+    bin_db = float(np.abs(agree_psnr["pallas"] - agree_psnr["xla"]).max())
+    log(f"[4] main path (b): {AGREE_STEPS} steps 'pallas' + kernel E (launches: A {n_b['a']}, "
+        f"D {n_b['d']}, E {n_b['e']}) vs 'xla' + top_k: PSNR {agree_psnr['pallas'][-1]:.4f} vs "
+        f"{agree_psnr['xla'][-1]:.4f} dB at the last step, at most {bin_db:.3g} dB apart")
+    report["phases"]["pallas_vs_xla"] = dict(max_db=bin_db, steps=AGREE_STEPS,
+                                             psnr_pallas=agree_psnr["pallas"].tolist())
+    check(all(n_b[key] == AGREE_STEPS for key in "ade"), f"(b): launches {n_b}")
+    check(bin_db <= AGREE_DB, f"'pallas' and 'xla' fits differ by {bin_db:.3g} dB")
+
+    # (c) an odd tile grid: 'auto' resolves to the binned pair
+    oh, ow = ODD_HW
+    cfg_odd = gi.GaussianConfig(H=oh, W=ow)
+    check(gi.resolve_backend(cfg_odd, dev) == "pallas",
+          f"odd grid: 'auto' resolved to {gi.resolve_backend(cfg_odd, dev)!r}")
+    log(f"[4] main path (c): fit_image of the top-left {oh}x{ow} crop "
+        f"({-(-ow // 16)}x{-(-oh // 16)} tiles), 'auto' -> 'pallas', {ODD_FIT}")
+    res_odd, launches_odd = run_fit("odd-grid fit", fit_target[:oh, :ow].contiguous(), cfg_odd,
+                                    ODD_FIT, FIT_POINTS, ODD_RISE_DB, False)
+    check(launches_odd["d"] == ODD_FIT["iterations"] == launches_odd["a"],
+          f"odd grid: kernels A and D launched {launches_odd['a']} and {launches_odd['d']} times")
+
+    # (d) the 2K point: 'pallas' with 'hier' binning
+    h2, w2 = K2_HW
+    target2k = torch.as_tensor(np.kron(np.random.default_rng(1).uniform(0, 1, (84, 128, 3)),
+                                       np.ones((16, 16, 1)))[:h2, :w2].astype(np.float32),
+                               device=dev)
+    cfg2k = gi.GaussianConfig(H=h2, W=w2, max_num_points=K2_POINTS, raster_backend="pallas")
+    ts2k = tr.init_train_state(cfg2k, tcfg, K2_POINTS, seed=FIT_SEED, device=dev)
+    g2k = ts2k.gaussians
+    bins2k = bin_gaussians(gi.project(g2k.params, g2k.active, g2k.bound, cfg2k), h2, w2,
+                           cap=cfg2k.tile_cap, method=cfg2k.bin_method)
+    check(bins2k.super_overflow is not None, "2K: bin_method='auto' did not pick 'hier'")
+    log(f"[4] main path (d): fit_image at {h2}x{w2}, {K2_POINTS} Gaussians, {K2_STEPS} steps, "
+        f"'pallas' with 'auto' -> 'hier' binning (super_overflow at init "
+        f"{int(bins2k.super_overflow)})")
+    fit2k = dict(iterations=K2_STEPS, prune_iter=K2_STEPS)
+    res2k, launches_2k = run_fit("2K fit", target2k, cfg2k, fit2k, K2_POINTS, 0.0, False)
+    check(launches_2k["a"] == launches_2k["d"] == K2_STEPS, f"2K: launches {launches_2k}")
+    s2k = res2k.state
+    proj2k = gi.project(s2k.params, s2k.active, s2k.bound, cfg2k)
+    bins2k = bin_gaussians(proj2k, h2, w2, cap=cfg2k.tile_cap, method=cfg2k.bin_method)
+    log(f"  2K best state: super_overflow {int(bins2k.super_overflow)}, at most "
+        f"{int(bins2k.count.max())} in a tile")
+    report["phases"]["2K fit"]["super_overflow"] = int(bins2k.super_overflow)
+
+    # (e) the dense, sweep and range kernels against list_t
+    log("[4] main path (e): every fitted state through render_fast, dense / sweep / range vs list_t")
+    reset_launches()
+    by_enum = dict.fromkeys(("list_t", "dense", "sweep", "range"), 0)   # kernel B, per enumeration
+
+    def render_counted(kname, s, cfg, sweep):
+        n0 = kernel_b.launches
+        img = gi.render_fast(s, cfg, sweep=sweep)
+        by_enum[kname] += kernel_b.launches - n0
+        return img
+
+    for path in states:
+        name = f"{path.parent.name}/{path.stem}"
+        d = dict(np.load(path))
+        cfg = config_from_numpy(d)
+        s = state_from_numpy(d, device=dev)
+        ref = render_counted("list_t", s, cfg, "list_t")
+        for kname, sweep in (("dense", False), ("sweep", True), ("range", "range")):
+            img = render_counted(kname, s, cfg, sweep)
+            valid_image(f"{name} {kname}", img, (cfg.H, cfg.W, 3))
+            agree(f"{name} {kname} vs list_t", img, ref)
+    sync()
+    launches_e = read_launches("render_fast dense / sweep / range")
+    check(launches_e["b"] == 4 * len(states), f"(e): kernel B launched {launches_e['b']} times")
+    check(all(n == len(states) for n in by_enum.values()), f"(e): kernel B per enumeration {by_enum}")
+
+    def loss_grads(st_, cfg, backend):
+        params = gi.GaussianParams(*(p.detach().clone().requires_grad_(True) for p in st_.params))
+        img = gi.render(st_._replace(params=params), dataclasses.replace(cfg, raster_backend=backend))
+        return torch.autograd.grad(torch.mean((img - gt) ** 2), params)
+
+    reset_launches()
+    g_ref = loss_grads(st, cfg_s, "list_t")
+    grad_rel = 0.0
+    for backend in ("dense", "sweep"):
+        for a, b, pname in zip(loss_grads(st, cfg_s, backend), g_ref, ("xyz", "cov2d", "features")):
+            dcol, scale = (a - b).abs().amax(0), b.abs().amax(0)
+            grad_rel = max(grad_rel, float((dcol / scale.clamp(min=1e-30)).max()))
+            check(bool((dcol <= C_REL * scale).all()), f"(e) {backend} {pname} gradient differs "
+                  f"from list_t's by more than {C_REL} of a column's max")
+    sync()
+    launches_g = read_launches("render dense / sweep gradients")
+    check(launches_g["b"] == launches_g["c"] == 3, f"(e) gradients: launches {launches_g}")
+    log(f"  {len(states)} states x 3 kernels agree with list_t (launches: B {launches_e['b']}); "
+        f"gradients of {states[0].parent.name}/{states[0].stem} through dense and sweep within "
+        f"{grad_rel:.3g} of each column's max of list_t's (launches: B {launches_g['b']}, "
+        f"C {launches_g['c']})")
+    report["phases"]["dense_sweep_range"] = dict(launches=launches_e, grad_launches=launches_g,
+                                                 kernel_b_per_enumeration=by_enum,
+                                                 grad_worst_column_rel=grad_rel)
+
+    # kernels D and E on the states the paths produced
+    log("[3] kernels D and E on the fit and 2K states")
+    g_b = res_bin.state
+    proj_b, col_b = gi.project(g_b.params, g_b.active, g_b.bound, cfg_fit), gi.colors_of(g_b.params, cfg_fit)
+    with torch.no_grad():
+        cot_b = l2_cotangent(gi.render(g_b, cfg_bin), fit_target)
+    inp_d = compare_d("binned fit state after growth", proj_b, col_b, cfg_fit.H, cfg_fit.W,
+                      {"L2": cot_b, "normal": normal_cotangent(cfg_fit.H, cfg_fit.W, 8)})
+    bbox_e = compare_e("binned fit state after growth", proj_b, cfg_fit.H, cfg_fit.W)
+    with torch.no_grad():
+        cot2k = l2_cotangent(gi.render(s2k, cfg2k), target2k)
+    compare_d("2K state", proj2k, gi.colors_of(s2k.params, cfg2k), h2, w2,
+              {"L2": cot2k, "normal": normal_cotangent(h2, w2, 9)}, bins2k)
+    compare_e("2K state", proj2k, h2, w2)
 
     # the dense oracle (direct form, independent of the tile table) on kodim01
     img01, _ = decode_bitstream(kodim01, device=dev)
@@ -605,6 +896,14 @@ def run() -> None:
         "kernel B, kodim01 Morton kc 128": launch_ms(lambda: kernel_b(*inp_m, 128, H, W)),
         "plain B, kodim01 kc 128": launch_ms(lambda: plain_b(*inp_l, 128, H, W)),
     }
+    # kernel B over the dense, sweep and range enumerations, on kodim01 in
+    # stream and Morton order
+    for (kname, order), (inp_, kc) in enum_inputs.items():
+        times[f"kernel B, kodim01 {order}, {kname} kc {kc}"] = launch_ms(
+            lambda inp_=inp_, kc=kc: kernel_b(*inp_, kc, H, W))
+        if order == "stream order":
+            times[f"plain B, kodim01 {order}, {kname} kc {kc}"] = launch_ms(
+                lambda inp_=inp_, kc=kc: plain_b(*inp_, kc, H, W))
     # a train step after the growth: the fit's best state, in Morton order, fresh Adam
     ts_t = tr._morton_resort(tr.init_train_state(cfg_fit, tcfg, 0, gaussians=res.state), cfg_fit)
     tx = tr.make_optimizer(tcfg)
@@ -625,6 +924,25 @@ def run() -> None:
                                              kernel_c, plain_c, (table_c, bbox_c, cot_t)))
     times["kernel C, fit state kc 128"] = launch_ms(lambda: kernel_c(table_c, bbox_c, cot_t))
     times["plain C, fit state kc 128"] = launch_ms(lambda: plain_c(table_c, bbox_c, cot_t))
+    # the same gradient on the sweep's table (kc 64 padding: sweep_backward)
+    table_c64, bbox_c64 = c_inputs(proj_t, col_t, cfg_fit.H, cfg_fit.W, raster_dense.SWEEP_KC)
+    times["kernel C, fit state kc 64"] = launch_ms(lambda: kernel_c(table_c64, bbox_c64, cot_t))
+    times["plain C, fit state kc 64"] = launch_ms(lambda: plain_c(table_c64, bbox_c64, cot_t))
+    # kernels D and E at the binned fit state after growth (cap 256)
+    times["kernel D, binned fit state"] = launch_ms(lambda: kernel_d(*inp_d, cot_b))
+    times["plain D, binned fit state"] = launch_ms(lambda: plain_d(*inp_d, cot_b))
+    tb_fit = tile_bounds_for(cfg_fit.H, cfg_fit.W)
+    times["kernel E, binned fit state"] = launch_ms(lambda: kernel_e(bbox_e, *tb_fit, 256))
+    times["plain E, binned fit state"] = launch_ms(lambda: plain_e(bbox_e, *tb_fit, 256))
+    n_e = bbox_e.shape[0]
+    t_e = torch.arange(tb_fit[0] * tb_fit[1], device=dev)
+    tx_e = (t_e % tb_fit[0])[:, None]
+    ty_e = torch.div(t_e, tb_fit[0], rounding_mode="floor")[:, None]
+    member_e = ((tx_e >= bbox_e[None, :, 0]) & (tx_e < bbox_e[None, :, 1]) &
+                (ty_e >= bbox_e[None, :, 2]) & (ty_e < bbox_e[None, :, 3]))
+    key_e = torch.where(member_e, n_e - torch.arange(n_e, dtype=torch.int32, device=dev)[None, :],
+                        torch.zeros((), dtype=torch.int32, device=dev))
+    times["torch.topk(key, 256), binned fit state"] = launch_ms(lambda: torch.topk(key_e, 256, dim=1))
     for k, v in times.items():
         log(f"  {k}: {v:.4f} ms")
     report["times_ms"] = times
@@ -637,7 +955,30 @@ def run() -> None:
 
     times[f"train step, {n_timed} active, xla (plain)"] = step_xla_ms = median_ms(one_step_xla)
     log(f"  train step, {n_timed} active, xla (plain): {step_xla_ms:.4f} ms")
-    for tag, fn, ms_step in (("auto (list_t)", one_step, step_ms), ("xla (plain)", one_step_xla, step_xla_ms)):
+    steps = [("auto (list_t)", one_step, step_ms), ("xla (plain)", one_step_xla, step_xla_ms)]
+
+    def stepper(state, cfg, target):
+        """A train step from ``state`` with a fresh Adam, one step per call."""
+        box = [tr.init_train_state(cfg, tcfg, 0, gaussians=state)]
+
+        def fn():
+            box[0] = tr.train_step(box[0], target, cfg, tcfg, tx)[0]
+
+        return fn
+
+    # the binned step after the growth (stream order: clipping follows id order),
+    # and the 2K step
+    n_bin, n_2k = int(res_bin.state.num_active), int(res2k.state.num_active)
+    for tag, state, cfg, target in (
+            (f"{n_bin} active, pallas, top_k binning", res_bin.state,
+             dataclasses.replace(cfg_bin, bin_method="top_k"), fit_target),
+            (f"{n_bin} active, pallas, kernel E binning", res_bin.state, cfg_bin, fit_target),
+            (f"2K, {n_2k} active, pallas, hier binning", res2k.state, cfg2k, target2k)):
+        fn = stepper(state, cfg, target)
+        times[f"train step, {tag}"] = ms = median_ms(fn)
+        log(f"  train step, {tag}: {ms:.4f} ms")
+        steps.append((tag, fn, ms))
+    for tag, fn, ms_step in steps:
         busy, top = device_time_per_call(fn, top=6)
         log(f"  train step {tag}: device busy {busy:.4f} ms of a {ms_step:.4f} ms step "
             f"({busy / ms_step:.1%}); top device time: "
@@ -674,6 +1015,16 @@ def run() -> None:
         report.setdefault("kernel_b_rows_visited", {})[tag] = rows
     bound_a, by_a = bound(members_a * PIX * OPS_PER_PAIR, bytes_a)
     bound_b, by_b = bound(members_b * PIX * OPS_PER_PAIR, bytes_b)
+    for (kname, order), (inp_, kc) in enum_inputs.items():
+        table_, bbox_, lst_, cnt_, lo2_, hi2_ = inp_
+        rows = int((cnt_ + (hi2_ - lo2_).clamp(min=0)).sum()) * kc
+        bytes_ = (table_.numel() + bbox_.numel() + lst_.numel() + 3 * T) * 4 + H * W * 3 * 4
+        bound_, by_ = bound(members_b * PIX * OPS_PER_PAIR, bytes_)
+        ms = times[f"kernel B, kodim01 {order}, {kname} kc {kc}"]
+        log(f"  kernel B on kodim01, {order}, {kname} (kc {kc}): {rows} table rows visited "
+            f"({rows / members_b:.1f} per member), {ms:.4f} ms, bound {bound_:.5f} ms ({by_})")
+        report.setdefault("kernel_b_enumerations", {})[f"{kname}, {order}"] = dict(
+            kc=kc, rows_visited=rows, ms=ms, bound_ms=bound_, bound_by=by_)
     live = table_c[:, 15] > 0
     area = ((bbox_c[:, 1] - bbox_c[:, 0]) * (bbox_c[:, 3] - bbox_c[:, 2]))[live]
     members_c, largest_c = int(area.sum()), int(area.max())
@@ -687,13 +1038,34 @@ def run() -> None:
     report["kernel_c_input"] = dict(rows=int(live.sum()), members=members_c, largest_bbox_tiles=largest_c,
                                     pairs_on_image=on_image_c, pairs_passing=passing_c,
                                     pass_fraction=pass_frac_c)
-    kernels = [
+    # kernel D: the gate at every live (slot, pixel) pair on the image, the
+    # rest where it passes; bytes: the live table rows and ids, counts, bbox,
+    # cotangent, output
+    raw_d, counts_d, _, bbox_d = inp_d
+    members_d = int(counts_d.sum())
+    on_image_d, passing_d = gate_slots(raw_d, counts_d, cfg_fit.H, cfg_fit.W)
+    bytes_d = (members_d * (64 + 4) + counts_d.numel() * 4 + bbox_d.numel() * 4
+               + cfg_fit.H * cfg_fit.W * 3 * 4 + bbox_d.shape[0] * 9 * 4)
+    bound_d, by_d = bound(on_image_d * OPS_GATE_C + passing_d * OPS_PASS_C, bytes_d)
+    # kernel E: the bbox tests its input needs; bytes: the bbox table, ids, counts
+    tests_e = scanned_ids(bbox_e, *tb_fit, 256)
+    bytes_e = bbox_e.numel() * 4 + t_e.numel() * (256 + 1) * 4
+    bound_e, by_e = bound(tests_e * OPS_BIN_TEST, bytes_e)
+    log(f"  kernel D on the binned fit state: {members_d} live slots, {on_image_d} (slot, pixel) "
+        f"pairs on the image, {passing_d} ({passing_d / on_image_d:.4%}) pass the gate; kernel E: "
+        f"{tests_e} bbox tests ({t_e.numel()} tiles x {n_e} rows)")
+    report["kernel_d_input"] = dict(live_slots=members_d, pairs_on_image=on_image_d,
+                                    pairs_passing=passing_d)
+    report["kernel_e_input"] = dict(tests=tests_e, tiles=t_e.numel(), rows=n_e)
+    total = {key: sum(n[key] for n in path_launches.values()) for key in kernels}
+    report["path_launches"] = path_launches
+    kernel_rows = [
         dict(name="tile_table_forward", route="cuda",
              source="gaussianimage_plus_tpu_torch/csrc/tile_table_forward.cu",
              replaces="gaussianimage_plus_tpu/kernels/raster_pallas.py:218 (_run_fwd); "
                       "gaussianimage_plus_tpu/kernels/raster_flat_pallas.py:82 "
                       "(rasterize_prepared_flat)",
-             launches=launches["a"] + launches_fit["a"], max_abs_err=err["a"],
+             launches=total["a"], max_abs_err=err["a"],
              ms=times["kernel A, kodim01 trimmed"],
              plain_ms=times["plain A, kodim01 trimmed"], bound_ms=bound_a, bound_by=by_a, library_ms=None,
              shape=f"kodim01 bin-once table {tuple(prep_trim.raw.shape)}, {members_a} members"),
@@ -701,8 +1073,13 @@ def run() -> None:
              source="gaussianimage_plus_tpu_torch/csrc/chunk_list_forward.cu",
              replaces="gaussianimage_plus_tpu/kernels/raster_list_pallas.py:252 "
                       "(rasterize_list_pallas); gaussianimage_plus_tpu/kernels/"
-                      "raster_list_pallas.py:376 (rasterize_list_t_pallas)",
-             launches=launches["b"] + launches_fit["b"], max_abs_err=err["b"],
+                      "raster_list_pallas.py:376 (rasterize_list_t_pallas); "
+                      "gaussianimage_plus_tpu/kernels/raster_dense_pallas.py:368 "
+                      "(rasterize_dense_pallas); gaussianimage_plus_tpu/kernels/"
+                      "raster_dense_pallas.py:481 (rasterize_sweep_pallas); "
+                      "gaussianimage_plus_tpu/kernels/raster_dense_pallas.py:593 "
+                      "(rasterize_range_pallas)",
+             launches=total["b"], max_abs_err=err["b"],
              ms=times["kernel B, kodim01 kc 128"],
              plain_ms=times["plain B, kodim01 kc 128"], bound_ms=bound_b, bound_by=by_b,
              library_ms=None,
@@ -714,18 +1091,39 @@ def run() -> None:
                       "(list_backward layout='rows', body :429-518); gaussianimage_plus_tpu/"
                       "kernels/raster_list_pallas.py:681 (list_backward layout='lanes', body "
                       ":521-614); gaussianimage_plus_tpu/kernels/raster_dense_pallas.py:292 "
-                      "(dense_backward, body :102-183)",
-             launches=launches_fit["c"], max_abs_err=err["c"],
+                      "(dense_backward, body :102-183); gaussianimage_plus_tpu/kernels/"
+                      "raster_dense_pallas.py:330 (sweep_backward, body :185-273)",
+             launches=total["c"], max_abs_err=err["c"],
              ms=times["kernel C, fit state kc 128"], plain_ms=times["plain C, fit state kc 128"],
              bound_ms=bound_c, bound_by=by_c, library_ms=None,
              shape=f"fit state after growth, table {tuple(table_c.shape)}, {int(live.sum())} "
                    f"valid rows, {members_c} (row, tile) members, largest bbox {largest_c} tiles, "
                    f"{passing_c} of {on_image_c} (member, pixel) pairs ({pass_frac_c:.4%}) pass "
                    f"the gate"),
+        dict(name="tile_table_backward", route="cuda",
+             source="gaussianimage_plus_tpu_torch/csrc/tile_table_backward.cu",
+             replaces="gaussianimage_plus_tpu/kernels/raster_pallas.py:241 (_run_bwd, body "
+                      ":151-204; with the scatter-add :426-440 and _gather_grads :364)",
+             launches=total["d"], max_abs_err=err["d"],
+             ms=times["kernel D, binned fit state"], plain_ms=times["plain D, binned fit state"],
+             bound_ms=bound_d, bound_by=by_d, library_ms=None,
+             shape=f"binned fit state after growth, table {tuple(raw_d.shape)}, {members_d} live "
+                   f"slots, {bbox_d.shape[0]} Gaussians, {passing_d} of {on_image_d} (slot, "
+                   f"pixel) pairs pass the gate"),
+        dict(name="tile_bin", route="cuda",
+             source="gaussianimage_plus_tpu_torch/csrc/tile_bin.cu",
+             replaces="gaussianimage_plus_tpu/kernels/binning_pallas.py:92 "
+                      "(bin_gaussians_pallas, body :43-89)",
+             launches=total["e"], max_abs_err=err["e"],
+             ms=times["kernel E, binned fit state"], plain_ms=times["plain E, binned fit state"],
+             bound_ms=bound_e, bound_by=by_e,
+             library_ms=times["torch.topk(key, 256), binned fit state"],
+             shape=f"binned fit state after growth, {t_e.numel()} tiles x {n_e} rows, cap 256, "
+                   f"{tests_e} bbox tests"),
     ]
-    report["kernels"] = kernels
+    report["kernels"] = kernel_rows
     write_report()
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernel_rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -108,9 +108,12 @@ def decompress_wo_ec(bundle: QuantizerBundle, enc: Encoding, bound: torch.Tensor
     """Dequantize + one render pass -> [H, W, 3] in [0, 1].
 
     ``backend``: ``'binned'`` (default): membership + per-tile selection +
-    the capped binned render; ``'list'``/``'list_t'``: the cap-free
-    chunk-list render (fastest on a ``morton_reorder``-ed stream).
-    ``'dense'``, ``'sweep'`` and ``'range'`` are not ported yet."""
+    the capped binned render; ``'dense'``, ``'sweep'``, ``'range'``,
+    ``'list'``, ``'list_t'``: the cap-free render through ``render_fast``
+    (kernel B over each enumeration; the last four fastest on a
+    ``morton_reorder``-ed stream). The JAX package sends ``'dense'`` to the
+    binned branch off the TPU, where its dense kernel would run interpreted;
+    the port renders it cap-free on every device."""
     state, over = _decoded_state(bundle, enc, bound, qcfg)
     backend = backend or "binned"
     if backend in ("list", "list_t", "dense", "sweep", "range"):

@@ -3,7 +3,8 @@
 Counterpart of ``scripts/decode.py``. Usage::
 
     python -m gaussianimage_plus_tpu_torch.decode results/bitstreams_r4/kodim01.gipb \
-        [-o out.png] [--backend binned|list|list_t] [--time] [--device cpu|cuda]
+        [-o out.png] [--backend binned|dense|sweep|range|list|list_t] [--time] \
+        [--device cpu|cuda]
 
 ``--time`` measures on the card with CUDA events: after warm-up, the median
 over 50 frames of the full decode (parse, dequantize, project, select,
@@ -46,7 +47,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("bitstream")
     p.add_argument("-o", "--out", default=None, help="output PNG (default: <bitstream>.png)")
-    p.add_argument("--backend", choices=["binned", "list", "list_t"], default=None)
+    p.add_argument("--backend", choices=["binned", "dense", "sweep", "range", "list", "list_t"], default=None)
     p.add_argument("--time", action="store_true", help="time the decode on the card")
     p.add_argument("--device", choices=["cpu", "cuda"], default=None,
                    help="default: the CUDA card")

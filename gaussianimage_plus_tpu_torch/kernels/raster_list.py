@@ -38,6 +38,7 @@ the TPU's lists, are not parameters of ``list_backward`` here.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -204,15 +205,22 @@ def chunk_list_forward(table, bbox, lst, cnt, lo2, hi2, kc: int,
 chunk_list_forward.launches = 0
 
 
+def member_lists(table, bbox, N: int, Np: int, kc: int, H: int, W: int,
+                 lmax: int = None):
+    """The chunk-list enumeration: each tile's member chunks, the first
+    ``lmax`` listed and the rest as a residual interval -> (lst, cnt, lo2,
+    hi2)."""
+    lmax = _default_lmax(H, W) if lmax is None else lmax
+    tb_x, tb_y = tile_bounds_for(H, W)
+    member = _bbox_members(table, bbox, tb_x, tb_x * tb_y)
+    return _chunk_lists(member, N, Np, kc, lmax)
+
+
 def list_inputs(proj: Projected, colors, opacity, H: int, W: int, kc: int,
                 lmax: int = None):
     """Everything kernel B reads: (table, bbox, lst, cnt, lo2, hi2)."""
-    lmax = _default_lmax(H, W) if lmax is None else lmax
-    tb_x, tb_y = tile_bounds_for(H, W)
     table, bbox, N, Np = _table_bbox(proj, colors, opacity, H, W, kc)
-    member = _bbox_members(table, bbox, tb_x, tb_x * tb_y)
-    lst, cnt, lo2, hi2 = _chunk_lists(member, N, Np, kc, lmax)
-    return table, bbox, lst, cnt, lo2, hi2
+    return (table, bbox) + member_lists(table, bbox, N, Np, kc, H, W, lmax)
 
 
 def chunk_backward_plain(table: torch.Tensor, bbox: torch.Tensor,
@@ -302,17 +310,20 @@ def list_backward(proj: Projected, colors, opacity, v_img, H: int, W: int,
     return split_payload(chunk_backward(table, bbox, v_img.contiguous()), N, opacity)
 
 
-class _RasterizeList(torch.autograd.Function):
-    """Kernel B forward, kernel C backward on the table and bbox the forward
-    built; gradients reach the centres, conics, colours and opacities."""
+class RasterizeChunks(torch.autograd.Function):
+    """Kernel B forward over the chunks that ``lists(table, bbox, N, Np, kc,
+    H, W) -> (lst, cnt, lo2, hi2)`` enumerates, kernel C backward on the
+    table and bbox the forward built; gradients reach the centres, conics,
+    colours and opacities. Every enumeration that covers each tile's member
+    chunks renders the same cap-free function, so they share this backward."""
 
     @staticmethod
-    def forward(ctx, xys, conics, colors, opacity, radii, valid, H, W, kc, lmax):
+    def forward(ctx, xys, conics, colors, opacity, radii, valid, H, W, kc, lists):
         proj = Projected(xys, conics, radii, torch.zeros_like(radii), valid)
-        inputs = list_inputs(proj, colors, opacity, H, W, kc, lmax)
-        ctx.save_for_backward(*inputs[:2], opacity)
-        ctx.n = xys.shape[0]
-        return chunk_list_forward(*inputs, kc, H, W)
+        table, bbox, N, Np = _table_bbox(proj, colors, opacity, H, W, kc)
+        ctx.save_for_backward(table, bbox, opacity)
+        ctx.n = N
+        return chunk_list_forward(table, bbox, *lists(table, bbox, N, Np, kc, H, W), kc, H, W)
 
     @staticmethod
     def backward(ctx, v_img):
@@ -327,8 +338,8 @@ def rasterize_list(proj: Projected, colors, opacity, H: int, W: int,
     """Differentiable ``rasterize_list`` (kc 64, row-major TPU bodies #4 and
     #6) -> unclamped [H, W, 3]."""
     kc = KC if kc is None else kc
-    return _RasterizeList.apply(proj.xys, proj.conics, colors, opacity, proj.radii,
-                                proj.valid, H, W, kc, lmax)
+    return RasterizeChunks.apply(proj.xys, proj.conics, colors, opacity, proj.radii,
+                                 proj.valid, H, W, kc, functools.partial(member_lists, lmax=lmax))
 
 
 def rasterize_list_t(proj: Projected, colors, opacity, H: int, W: int,
@@ -336,5 +347,5 @@ def rasterize_list_t(proj: Projected, colors, opacity, H: int, W: int,
     """Differentiable ``rasterize_list_t`` (kc 128, lane-major TPU bodies #5
     and #7) -> unclamped [H, W, 3]."""
     kc = KC_T if kc is None else kc
-    return _RasterizeList.apply(proj.xys, proj.conics, colors, opacity, proj.radii,
-                                proj.valid, H, W, kc, lmax)
+    return RasterizeChunks.apply(proj.xys, proj.conics, colors, opacity, proj.radii,
+                                 proj.valid, H, W, kc, functools.partial(member_lists, lmax=lmax))

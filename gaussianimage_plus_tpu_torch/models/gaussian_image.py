@@ -11,15 +11,17 @@ the JAX package; opacity is fixed at 1. Randomness comes from an explicit
 ``torch.Generator`` (``init_state``, ``grow``); the JAX package's draws can be
 injected instead (``grow(draws=...)``), since the two generators differ.
 
-Backends: ``'pallas'`` is the binned capped kernel (kernel A, forward only:
-its backward, TPU kernel #2, is not ported, so it refuses inputs that
-require grad), ``'xla'`` the plain PyTorch tiled path with the same
-semantics and the JAX package's VJP, ``'list'``/``'list_t'`` the cap-free
-chunk-list pair at kc 64/128 (kernel B forward, kernel C backward).
-``'auto'`` follows the JAX rule on the card (``list_t`` when the tile grid
-divides 16, else the binned kernel) and gives ``'xla'`` on the CPU, as the
-JAX package does off the TPU. ``'dense'``, ``'sweep'`` and ``'range'`` are
-not ported yet.
+Backends: ``'pallas'`` is the binned capped pair (kernel A forward, kernel
+D backward) over bins from ``cfg.bin_method`` (``'pallas'``: kernel E);
+``'list'``/``'list_t'`` the cap-free chunk-list pair at kc 64/128 (kernel B
+forward, kernel C backward); ``'dense'`` and ``'sweep'`` the same cap-free
+function over every chunk or each tile's member chunks (kernel B forward,
+kernel C backward). Every other name, ``'xla'`` among them, takes the plain
+PyTorch tiled path with the capped semantics and the JAX package's VJP, as
+the JAX ``render`` does. ``'auto'`` follows the JAX rule on the card
+(``list_t`` when the tile grid divides 16, else ``'pallas'``) and gives
+``'xla'`` on the CPU, as the JAX package does off the TPU. The forward-only
+``render_fast`` adds the chunk-range enumeration, ``sweep='range'``.
 
 The render clamps with ``torch.minimum(torch.maximum(img, 0), 1)``, whose
 gradient at exactly 0 or 1 is one half, as ``jnp.clip``'s is
@@ -40,10 +42,14 @@ from ..core.gaussian2d import (BLOCK_H, BLOCK_W, Projected, cholesky_to_cov2d,
                                project_gaussians_2d_covariance, psd_valid_mask,
                                scale_rot_to_cov2d, slv_bound, tile_bounds_for)
 from ..core.render_tiled import rasterize_tiled
+from ..kernels.binning_tiles import bin_gaussians_tiles
 from ..kernels.raster_binned import prepare_raster, rasterize_binned, rasterize_prepared_flat
+from ..kernels.raster_dense import (rasterize_dense, rasterize_dense_pallas,
+                                    rasterize_range_pallas, rasterize_sweep,
+                                    rasterize_sweep_pallas)
 from ..kernels.raster_list import TB_T, rasterize_list, rasterize_list_t
 
-_NOT_PORTED = ("dense", "sweep", "range")
+_CAP_FREE = {"dense": rasterize_dense, "sweep": rasterize_sweep}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,10 +173,7 @@ def resolve_backend(cfg: GaussianConfig, device) -> str:
     return "list_t" if (tb_x * tb_y) % TB_T == 0 else "pallas"
 
 
-def _check_supported(cfg: GaussianConfig, backend: str) -> None:
-    if backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"raster backend {backend!r} is not ported yet (ROADMAP queue 2)")
+def _check_supported(cfg: GaussianConfig) -> None:
     if (cfg.block_h, cfg.block_w) != (BLOCK_H, BLOCK_W):
         raise NotImplementedError("the port's kernels render 16x16 tiles only")
 
@@ -196,27 +199,28 @@ def render(state: GaussianState, cfg: GaussianConfig,
     """Forward pass -> [H, W, 3] clamped to [0, 1]: project -> (bin) ->
     rasterize -> clamp, on the device of the state's tensors."""
     backend = resolve_backend(cfg, state.active.device)
-    _check_supported(cfg, backend)
+    _check_supported(cfg)
     proj, colors, opacity = _inputs(state, cfg, cov_override, means_override,
                                     colors_override)
     if backend in ("list", "list_t"):
         raster = rasterize_list_t if backend == "list_t" else rasterize_list
         return _clip01(raster(proj, colors, opacity, cfg.H, cfg.W))
-    bins = bin_gaussians(proj, cfg.H, cfg.W, cap=cfg.tile_cap,
-                         block_h=cfg.block_h, block_w=cfg.block_w,
-                         method=cfg.bin_method)
+    if backend in _CAP_FREE:
+        return _clip01(_CAP_FREE[backend](proj.xys, proj.conics, colors, opacity,
+                                          proj.radii, proj.valid, cfg.H, cfg.W))
+    if cfg.bin_method == "pallas":
+        bins = bin_gaussians_tiles(proj, cfg.H, cfg.W, cap=cfg.tile_cap,
+                                   block_h=cfg.block_h, block_w=cfg.block_w)
+    else:
+        bins = bin_gaussians(proj, cfg.H, cfg.W, cap=cfg.tile_cap,
+                             block_h=cfg.block_h, block_w=cfg.block_w,
+                             method=cfg.bin_method)
     if backend == "pallas":
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (proj.xys, proj.conics, colors)):
-            raise NotImplementedError(
-                "the binned kernel's backward (TPU kernel #2) is not ported yet; "
-                "train with raster_backend 'list_t', 'list' or 'xla'")
         img = rasterize_binned(proj.xys, proj.conics, colors, opacity,
-                               bins.ids, bins.mask, cfg.H, cfg.W)
-    elif backend == "xla":
+                               bins.ids, bins.mask, proj.radii, cfg.H, cfg.W)
+    else:
         img = rasterize_tiled(proj.xys, proj.conics, colors, opacity,
                               bins.ids, bins.mask, cfg.H, cfg.W)
-    else:
-        raise ValueError(f"unknown raster backend {backend!r}")
     return _clip01(img)
 
 
@@ -226,8 +230,9 @@ def prepare_render(state: GaussianState, cfg: GaussianConfig,
                    colors_override: Optional[torch.Tensor] = None,
                    cap: Optional[int] = None):
     """Bin-once stage of the decode fast path: project + bin + gather into
-    a ``kernels.raster_binned.Prepared`` table."""
-    _check_supported(cfg, "pallas")
+    a ``kernels.raster_binned.Prepared`` table. ``bin_method='pallas'``
+    bins with ``'top_k'`` here (the same bins), as in the JAX package."""
+    _check_supported(cfg)
     proj, colors, opacity = _inputs(state, cfg, cov_override, means_override,
                                     colors_override)
     method = "top_k" if cfg.bin_method == "pallas" else cfg.bin_method
@@ -246,16 +251,27 @@ def render_fast(state: GaussianState, cfg: GaussianConfig,
                 cov_override: Optional[torch.Tensor] = None,
                 means_override: Optional[torch.Tensor] = None,
                 colors_override: Optional[torch.Tensor] = None,
-                sweep="list_t") -> torch.Tensor:
-    """Forward-only cap-free render. ``sweep`` picks the kernel family; the
-    port has the chunk-list pair (``'list'``, ``'list_t'``). The JAX default
-    (dense kernel), ``True`` (sweep) and ``'range'`` raise."""
-    if sweep not in ("list", "list_t"):
-        name = {False: "dense", True: "sweep"}.get(sweep, sweep)
-        raise NotImplementedError(
-            f"render_fast kernel {name!r} is not ported yet (ROADMAP queue 2)")
-    return render(state, dataclasses.replace(cfg, raster_backend=sweep),
-                  cov_override, means_override, colors_override)
+                sweep=False) -> torch.Tensor:
+    """Forward-only cap-free render (the decode/eval fast path) -> [H, W, 3]
+    in [0, 1]. ``sweep`` picks the chunk enumeration of kernel B, as in the
+    JAX package: ``False`` the dense kernel (every chunk), ``True`` the
+    chunk-skip sweep, ``'range'``, ``'list'`` or ``'list_t'``."""
+    _check_supported(cfg)
+    proj, colors, opacity = _inputs(state, cfg, cov_override, means_override,
+                                    colors_override)
+    if sweep == "range":
+        img = rasterize_range_pallas(proj, colors, opacity, cfg.H, cfg.W)
+    elif sweep == "list":
+        img = rasterize_list(proj, colors, opacity, cfg.H, cfg.W)
+    elif sweep == "list_t":
+        img = rasterize_list_t(proj, colors, opacity, cfg.H, cfg.W)
+    elif sweep is True:
+        img = rasterize_sweep_pallas(proj, colors, opacity, cfg.H, cfg.W)
+    elif sweep is False:
+        img = rasterize_dense_pallas(proj, colors, opacity, cfg.H, cfg.W)
+    else:
+        raise ValueError(f"unknown render_fast kernel {sweep!r}")
+    return _clip01(img)
 
 
 def get_attributes(state: GaussianState, cfg: GaussianConfig) -> dict:

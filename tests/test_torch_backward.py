@@ -217,9 +217,10 @@ def test_clamp_gradient_at_zero_is_half(monkeypatch):
 
 
 def test_kernel_paths_keep_or_refuse_the_graph():
-    """The list pair stays differentiable through its kernels; the binned
-    kernel, whose backward is not ported, refuses inputs that require grad
-    instead of returning a result cut off from the graph."""
+    """Every backend stays differentiable through its kernels: the binned
+    pair (kernel A forward, kernel D backward) too, which refused inputs
+    that require grad before its backward was ported. A kernel launch must
+    not cut the graph."""
     from gaussianimage_plus_tpu_torch.interop import state_from_numpy
 
     raw, _, H, W = _model_case(73, zero_colors=False)
@@ -227,14 +228,12 @@ def test_kernel_paths_keep_or_refuse_the_graph():
     params = tgi.GaussianParams(*(p.clone().requires_grad_(True) for p in st.params))
     live = st._replace(params=params)
     kw = dict(H=H, W=W, max_num_points=raw["xyz"].shape[0])
-    for backend in ("list", "list_t", "xla"):
+    for backend in ("list", "list_t", "xla", "pallas", "dense", "sweep", "range"):
         img = tgi.render(live, tgi.GaussianConfig(raster_backend=backend, **kw))
         assert img.grad_fn is not None, backend
         g = torch.autograd.grad(img.sum(), params)
         assert all(bool(x.abs().sum() > 0) for x in g), backend
     cfg_p = tgi.GaussianConfig(raster_backend="pallas", **kw)
-    with pytest.raises(NotImplementedError):
-        tgi.render(live, cfg_p)
     with torch.no_grad():
         assert tgi.render(live, cfg_p).shape == (H, W, 3)
     assert tgi.render(st, cfg_p).grad_fn is None

@@ -80,11 +80,14 @@ def test_bin_gaussians_scene(method, cap):
 
 
 def test_bin_methods_not_ported_raise():
+    """``'hier'`` and ``'pallas'`` were refused before they were ported; now
+    they bin, and give the ``'top_k'`` bins where no super-tile overflows."""
     xy, cov, *_ , H, W = scene(n=10, seed=1)
     _, pt = both_projections(xy, cov, H, W)
+    ref = tb.bin_gaussians(pt, H, W)
     for method in ("hier", "pallas"):
-        with pytest.raises(NotImplementedError):
-            tb.bin_gaussians(pt, H, W, method=method)
+        assert_bins_equal(tb.bin_gaussians(pt, H, W, method=method), ref, method)
+    assert int(tb.bin_gaussians(pt, H, W, method="hier").super_overflow) == 0
 
 
 @pytest.mark.parametrize("seed", [0, 1])

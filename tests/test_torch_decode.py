@@ -171,7 +171,10 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         decode_bitstream(open(R4, "rb").read())
     with pytest.raises(RuntimeError):
         state_from_numpy(dict(np.load(STATE)))
+    # the cap-free backends decode on the CPU when asked, through render_fast
+    data = open(R4, "rb").read()
+    ref, _ = decode_bitstream(data, backend="list_t", device="cpu")
     for backend in ("dense", "sweep", "range"):
-        with pytest.raises(NotImplementedError):
-            decode_bitstream(open(R4, "rb").read(), backend=backend, device="cpu")
+        img, _ = decode_bitstream(data, backend=backend, device="cpu")
+        assert_render_close(img, ref.numpy(), what=backend)
     assert jax.default_backend() == "cpu"

@@ -123,8 +123,9 @@ def test_no_jax_in_port_modules():
     pkg = pathlib.Path(ROOT) / "gaussianimage_plus_tpu_torch"
     files = sorted(pkg.rglob("*.py")) + [pathlib.Path(ROOT) / "chip_smoke.py"]
     names = {str(f.relative_to(pkg)) for f in files if pkg in f.parents}
-    assert {"interop.py", "core/gaussian2d.py", "core/render_tiled.py", "kernels/raster_list.py",
-            "kernels/raster_dense.py", "models/gaussian_image.py", "train/metrics.py",
+    assert {"interop.py", "core/gaussian2d.py", "core/render_tiled.py", "core/binning.py",
+            "kernels/raster_binned.py", "kernels/raster_list.py", "kernels/raster_dense.py",
+            "kernels/binning_tiles.py", "models/gaussian_image.py", "train/metrics.py",
             "train/losses.py", "train/optim.py", "train/trainer.py"} <= names
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):

@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Kernel A (``tile_table_forward``), kernel B (``chunk_list_forward``) and
-kernel C (``chunk_backward``) on synthetic scenes made with numpy from a
-seed: a small odd tile grid, a crowded tile that overflows a small cap, and a
-Kodak-size 768x512 scene.
+Kernel A (``tile_table_forward``), kernel B (``chunk_list_forward``),
+kernel C (``chunk_backward``), kernel D (``tile_table_backward``) and kernel
+E (``tile_bin``) on synthetic scenes made with numpy from a seed: a small odd
+tile grid, a crowded tile that overflows a small cap, and a Kodak-size
+768x512 scene.
 Every test is marked ``cuda`` and skips without a card. This file imports no
 JAX, so it also runs on a machine with PyTorch alone::
 
@@ -15,6 +16,8 @@ order, and differ only where an ``exp`` or the colour sums round across the
 sigma >= 0 or alpha >= 1/255 gate. Kernel C: per payload column, max
 |kernel - plain| <= 1e-4 max |plain| (the gate is bit-equal; the sums over
 pixels and tiles run in another order), and two launches give the same bits.
+Kernel D: the same, per column of its [N, 9] output. Kernel E: ids and counts
+equal the plain version's exactly.
 """
 
 import numpy as np
@@ -23,7 +26,7 @@ import torch
 
 from gaussianimage_plus_tpu_torch.core.binning import bin_gaussians
 from gaussianimage_plus_tpu_torch.core.gaussian2d import project_gaussians_2d_covariance
-from gaussianimage_plus_tpu_torch.kernels import raster_binned, raster_list
+from gaussianimage_plus_tpu_torch.kernels import binning_tiles, raster_binned, raster_list
 
 ATOL, RTOL, MAX_FRAC = 2e-5, 1e-5, 1e-4
 
@@ -113,6 +116,7 @@ def _payload_close(out, ref, what):
     out = out.cpu()
     assert out.shape == ref.shape and bool(torch.isfinite(out).all()), what
     assert not out[:, 9:].any(), f"{what}: padding columns not zero"
+    assert ref[:, :9].abs().amax(0).min() > 0, f"{what}: a payload column is all zero"
     for j in range(9):
         err = float((out[:, j] - ref[:, j]).abs().max())
         assert err <= 1e-4 * float(ref[:, j].abs().max()), f"{what}: column {j} off by {err}"
@@ -148,3 +152,49 @@ def test_chunk_backward_is_deterministic(card):
     second = raster_list.chunk_backward(*args)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+def _binned_inputs(case, dev):
+    kw = dict(SCENES[case])
+    cap = kw.pop("cap")
+    proj, colors, opacity = _scene(**kw)
+    H, W = kw["H"], kw["W"]
+    bins = bin_gaussians(proj, H, W, cap=cap)
+    N = proj.xys.shape[0]
+    raw, counts = raster_binned._prepare(proj.xys, proj.conics, colors, opacity,
+                                         bins.ids, bins.mask)
+    ids = raster_binned._slot_ids(bins.ids, bins.mask, N).to(torch.int32)
+    tb = (-(-W // 16), -(-H // 16))
+    bbox = raster_binned.tile_bbox_table(proj.xys, proj.radii, tb)
+    v_img = torch.as_tensor(np.random.default_rng(N).normal(size=(H, W, 3)).astype(np.float32))
+    return [a.contiguous().to(dev) for a in (raw, counts, ids, bbox, v_img)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SCENES))
+def test_tile_table_backward_matches_plain(card, case):
+    args = _binned_inputs(case, card)
+    ref = raster_binned.tile_table_backward_plain(*(a.cpu() for a in args))
+    before = raster_binned.tile_table_backward.launches
+    out = raster_binned.tile_table_backward(*args)
+    again = raster_binned.tile_table_backward(*args)
+    assert raster_binned.tile_table_backward.launches == before + 2
+    _payload_close(out, ref, f"kernel D {case}")
+    assert torch.equal(out, again), f"kernel D {case}: two launches differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SCENES))
+def test_tile_bin_matches_plain(card, case):
+    kw = dict(SCENES[case])
+    cap = kw.pop("cap")
+    proj, _, _ = _scene(**kw)
+    H, W = kw["H"], kw["W"]
+    tb_x, tb_y = -(-W // 16), -(-H // 16)
+    bbox = binning_tiles.tile_bbox_table(proj.xys, proj.radii, (tb_x, tb_y), proj.valid)
+    ref_ids, ref_count = binning_tiles.tile_bin_plain(bbox, tb_x, tb_y, cap)
+    before = binning_tiles.tile_bin.launches
+    ids, count = binning_tiles.tile_bin(bbox.to(card), tb_x, tb_y, cap)
+    assert binning_tiles.tile_bin.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(ids.cpu(), ref_ids) and torch.equal(count.cpu(), ref_count), case

@@ -146,7 +146,8 @@ BINNED_CASES = {
 def test_binned_plain_matches_jax_kernels(case):
     pj, pt, bj, bt, colors, opacity, H, W = _binned_case(**BINNED_CASES[case])
     col_t, op_t = torch.as_tensor(colors), torch.as_tensor(opacity)
-    out = raster_binned.rasterize_binned(pt.xys, pt.conics, col_t, op_t, bt.ids, bt.mask, H, W)
+    out = raster_binned.rasterize_binned(pt.xys, pt.conics, col_t, op_t, bt.ids, bt.mask, pt.radii,
+                                         H, W)
     ref = jax_rasterize_pallas(pj.xys, pj.conics, jnp.asarray(colors), jnp.asarray(opacity),
                                bj.ids, bj.mask, pj.radii, H, W)
     assert_render_close(out, ref, what=f"rasterize_pallas {case}")
@@ -199,7 +200,8 @@ def test_capped_and_cap_free_agree_without_overflow():
     col_t, op_t = torch.as_tensor(colors), torch.as_tensor(opacity)
     bt = bin_gaussians(pt, H, W, cap=256)
     assert int(bt.count.max()) < 256
-    a = raster_binned.rasterize_binned(pt.xys, pt.conics, col_t, op_t, bt.ids, bt.mask, H, W)
+    a = raster_binned.rasterize_binned(pt.xys, pt.conics, col_t, op_t, bt.ids, bt.mask, pt.radii,
+                                       H, W)
     b = raster_list.rasterize_list_t(pt, col_t, op_t, H, W)
     assert_render_close(a, b.numpy(), what="binned vs list")
 
