@@ -26,7 +26,8 @@ hand-written CUDA kernels against their plain PyTorch versions. Phases:
    Morton order at kc 128 and kc 64, on kodim01 in stream order, through
    ``dense_backward``, and on the synthetic grid; kernel D
    (``tile_table_backward``) on kodim01's binned table, on the synthetic grid
-   (ragged edge tiles), on a synthetic tile forced over its cap, and (after
+   (ragged edge tiles), on a synthetic tile forced over its cap (kernel B on
+   it too: more members than its shared list holds), and (after
    phase 4) on the binned fit state after growth and on the 2K state; each
    with the L2 cotangent ``2 (render - target) / (3 H W)`` and a seeded normal
    one. Tolerance, per payload column: ``max |kernel - plain| <= 1e-4 max
@@ -77,8 +78,18 @@ hand-written CUDA kernels against their plain PyTorch versions. Phases:
    (kernels B and C), ``'xla'`` (the plain path) and ``'pallas'`` with
    ``'top_k'`` and with kernel E binning, and the 2K step; per call (50 calls
    back to back, median of 5 runs) of each kernel, each plain version and
-   ``torch.topk`` on kernel E's key; and the device time of a full decode and
-   of each train step under ``torch.profiler``.
+   ``torch.topk`` on kernel E's key (the kernels' JSON ``ms``); beside it
+   each kernel's own device time per call, the same 50 calls queued behind
+   a spin kernel so that the card never waits for the host (the JSON
+   ``device_ms``: back to back, a kernel that runs faster than its Python
+   wrapper is timed by the host); kernel B also at the timed fit state and
+   per enumeration, with the table rows each visits; kernel D also at
+   kodim01's binned table and the 2K state, with its live slots, largest
+   tile bbox and each stage's device time under ``torch.profiler``; and the
+   device time of a full decode and of each train step under the profiler.
+   In some runs the profiler traces none of the kernels launched through the
+   port's own libraries: the log then names them, and D's stages are not
+   measured.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, ...}``. Any
@@ -90,6 +101,7 @@ package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -103,6 +115,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 ATOL, RTOL, MAX_FRAC = 2e-5, 1e-5, 1e-4
 FRAMES = 50
+SPIN_CYCLES = 20_000_000   # ~10 ms of torch.cuda._sleep on the H100
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FLOP/s
 # outside the tensor cores
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
@@ -224,9 +237,13 @@ def launch_ms(fn, launches: int = FRAMES, reps: int = 5) -> float:
     return statistics.median(per_call)
 
 
-def device_time_per_call(fn, calls: int = 10, top: int = 4):
+def device_time_per_call(fn, calls: int = 10, top: int = 4, kernels=()):
     """Device time per call of ``fn`` under ``torch.profiler`` (the sum over
-    the device-side events, kernels and copies), and the ``top`` entries."""
+    the device-side events, kernels and copies), the ``top`` entries, and
+    which of the port's CUDA functions ``kernels`` (names) it did not trace:
+    in some runs on the H100 the profiler has traced torch's kernels and
+    none of those launched through the port's own libraries, and the sum
+    then leaves them out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -238,9 +255,40 @@ def device_time_per_call(fn, calls: int = 10, top: int = 4):
         sync()
     rows = [(e.key, e.self_device_time_total / 1e3 / calls) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    check(rows, "torch.profiler recorded no device time")
     rows.sort(key=lambda r: -r[1])
-    return sum(ms for _, ms in rows), rows[:top]
+    missing = [k for k in kernels if not any(k in name for name, _ in rows)]
+    return sum(ms for _, ms in rows), rows[:top], missing
+
+
+def device_ms_per_call(fn, calls: int = FRAMES, reps: int = 5) -> float:
+    """A kernel's own device time per call, with the host's time hidden:
+    ``calls`` calls between two CUDA events, queued behind a spin kernel
+    (``torch.cuda._sleep``, doubled until it outlasts the host's queueing)
+    so that the card runs them back to back without waiting for the host;
+    median of ``reps`` runs. Back to back (``launch_ms``) the card waits for
+    a wrapper whose host time exceeds its kernel's."""
+    fn()
+    sync()
+    per_call = []
+    cycles = SPIN_CYCLES
+    while len(per_call) < reps:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        spun_long_enough = not start.query()
+        end.synchronize()
+        if spun_long_enough:
+            per_call.append(start.elapsed_time(end) / calls)
+        else:
+            check(cycles < 64 * SPIN_CYCLES, f"the host took {host_ms:.1f} ms to queue {calls} calls")
+            cycles *= 2
+    return statistics.median(per_call)
 
 
 def bound(ops: int, nbytes: int) -> tuple[float, str]:
@@ -282,11 +330,41 @@ def gate_pairs(table: torch.Tensor, bbox: torch.Tensor, h: int, w: int) -> tuple
     return gate_counts(t, table[r], h, w)
 
 
-def gate_slots(raw: torch.Tensor, counts: torch.Tensor, h: int, w: int) -> tuple[int, int]:
-    """``gate_counts`` of a kernel D input (the live slots of the table)."""
+def gate_slots(raw: torch.Tensor, counts: torch.Tensor, h: int, w: int,
+               batch: int = 1 << 16) -> tuple[int, int]:
+    """``gate_counts`` of a kernel D input (the live slots of the table), in
+    batches of slots so that the 2K state fits in memory."""
     live = torch.arange(raw.shape[1], device=raw.device)[None, :] < counts[:, None]
     t, k = live.nonzero(as_tuple=True)
-    return gate_counts(t, raw[t, k], h, w)
+    on_image = passing = 0
+    for i in range(0, t.numel(), batch):
+        a, b = gate_counts(t[i:i + batch], raw[t[i:i + batch], k[i:i + batch]], h, w)
+        on_image, passing = on_image + a, passing + b
+    return on_image, passing
+
+
+def list_members(table: torch.Tensor, bbox: torch.Tensor, h: int, w: int) -> int:
+    """(row, tile) members of a kernel B input: the pairs it blends."""
+    from gaussianimage_plus_tpu_torch.core.gaussian2d import tile_bounds_for
+    from gaussianimage_plus_tpu_torch.kernels.raster_list import _bbox_members
+
+    tb_x, tb_y = tile_bounds_for(h, w)
+    return int(_bbox_members(table, bbox, tb_x, tb_x * tb_y).sum())
+
+
+def rows_visited(cnt: torch.Tensor, lo2: torch.Tensor, hi2: torch.Tensor, kc: int) -> int:
+    """Table rows kernel B tests for membership over all tiles."""
+    return int((cnt + (hi2 - lo2).clamp(min=0)).sum()) * kc
+
+
+def bbox_tiles(bbox: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Tiles on the grid of each int32 tile bbox ``(xmin, xmax, ymin, ymax)``."""
+    from gaussianimage_plus_tpu_torch.core.gaussian2d import tile_bounds_for
+
+    tb_x, tb_y = tile_bounds_for(h, w)
+    bw = (bbox[:, 1].clamp(max=tb_x) - bbox[:, 0].clamp(min=0)).clamp(min=0)
+    bh = (bbox[:, 3].clamp(max=tb_y) - bbox[:, 2].clamp(min=0)).clamp(min=0)
+    return bw * bh
 
 
 def scanned_ids(bbox: torch.Tensor, tb_x: int, tb_y: int, cap: int) -> int:
@@ -577,8 +655,9 @@ def run() -> None:
                  equal_hier=same_hier))
         return bbox
 
-    compare_d("kodim01 stream order", proj01_s, col01_s, H, W,
-              {"L2": l2_cotangent(img01_s), "normal": normal_cotangent(H, W, 4)})
+    cot01 = l2_cotangent(img01_s)
+    inp_d01 = compare_d("kodim01 stream order", proj01_s, col01_s, H, W,
+                        {"L2": cot01, "normal": normal_cotangent(H, W, 4)})
     r_o = np.random.default_rng(5)
     target_o = torch.as_tensor(r_o.uniform(0, 1, (Ho, Wo, 3)).astype(np.float32), device=dev)
     with torch.no_grad():
@@ -595,6 +674,12 @@ def run() -> None:
     log(f"  over-cap case: {most_c} members in the crowded tile, cap 256")
     compare_d(f"synthetic over cap ({most_c} in a tile)", proj_c, col_o, Ho, Wo,
               {"normal": normal_cotangent(Ho, Wo, 7)}, bins_c)
+    # kernel B on the same crowded tile: more members than its shared list
+    # holds, so the tile blends its list several times
+    inp_crowd = raster_list.list_inputs(proj_c, col_o, ones_o, Ho, Wo, 128)
+    err["b"] = max(err["b"], compare(f"B synthetic crowded tile ({most_c} members) kc 128",
+                                     kernel_b(*inp_crowd, 128, Ho, Wo),
+                                     plain_b(*inp_crowd, 128, Ho, Wo)))
     compare_e(f"synthetic over cap ({most_c} in a tile)", proj_c, Ho, Wo)
     st_gt = state_from_numpy(d_gt, device=dev)
     proj_gt = gi.project(st_gt.params, st_gt.active, st_gt.bound, cfg_gt)
@@ -860,8 +945,8 @@ def run() -> None:
     bbox_e = compare_e("binned fit state after growth", proj_b, cfg_fit.H, cfg_fit.W)
     with torch.no_grad():
         cot2k = l2_cotangent(gi.render(s2k, cfg2k), target2k)
-    compare_d("2K state", proj2k, gi.colors_of(s2k.params, cfg2k), h2, w2,
-              {"L2": cot2k, "normal": normal_cotangent(h2, w2, 9)}, bins2k)
+    inp_d2k = compare_d("2K state", proj2k, gi.colors_of(s2k.params, cfg2k), h2, w2,
+                        {"L2": cot2k, "normal": normal_cotangent(h2, w2, 9)}, bins2k)
     compare_e("2K state", proj2k, h2, w2)
 
     # the dense oracle (direct form, independent of the tile table) on kodim01
@@ -928,8 +1013,22 @@ def run() -> None:
     table_c64, bbox_c64 = c_inputs(proj_t, col_t, cfg_fit.H, cfg_fit.W, raster_dense.SWEEP_KC)
     times["kernel C, fit state kc 64"] = launch_ms(lambda: kernel_c(table_c64, bbox_c64, cot_t))
     times["plain C, fit state kc 64"] = launch_ms(lambda: plain_c(table_c64, bbox_c64, cot_t))
-    # kernels D and E at the binned fit state after growth (cap 256)
-    times["kernel D, binned fit state"] = launch_ms(lambda: kernel_d(*inp_d, cot_b))
+    # kernel B at the same state: 'auto' renders it through list_t (kc 128)
+    inp_fit = raster_list.list_inputs(proj_t, col_t, torch.ones((proj_t.xys.shape[0],), device=dev),
+                                      cfg_fit.H, cfg_fit.W, 128)
+    err["b"] = max(err["b"], compare("B timed fit state Morton kc 128",
+                                     kernel_b(*inp_fit, 128, cfg_fit.H, cfg_fit.W),
+                                     plain_b(*inp_fit, 128, cfg_fit.H, cfg_fit.W)))
+    times["kernel B, fit state kc 128"] = launch_ms(
+        lambda: kernel_b(*inp_fit, 128, cfg_fit.H, cfg_fit.W))
+    # kernel D at three states: the binned fit state after growth (its plain
+    # version beside it), kodim01's binned table and the 2K state; kernel E at
+    # the fit state
+    d_states = {"binned fit state": (inp_d, cot_b, cfg_fit.H, cfg_fit.W),
+                "kodim01 binned table": (inp_d01, cot01, H, W),
+                "2K state": (inp_d2k, cot2k, h2, w2)}
+    for tag, (inp_, cot_, _, _) in d_states.items():
+        times[f"kernel D, {tag}"] = launch_ms(lambda inp_=inp_, cot_=cot_: kernel_d(*inp_, cot_))
     times["plain D, binned fit state"] = launch_ms(lambda: plain_d(*inp_d, cot_b))
     tb_fit = tile_bounds_for(cfg_fit.H, cfg_fit.W)
     times["kernel E, binned fit state"] = launch_ms(lambda: kernel_e(bbox_e, *tb_fit, 256))
@@ -946,6 +1045,34 @@ def run() -> None:
     for k, v in times.items():
         log(f"  {k}: {v:.4f} ms")
     report["times_ms"] = times
+    # each kernel's own device time per call (queued behind a spin kernel),
+    # beside the event time of 50 calls back to back above; kernel D's stages
+    # from one profiler session each (none when the profiler did not trace them)
+    names_a, names_b = ["tile_table_forward_kernel"], ["chunk_list_forward_kernel"]
+    names_d = ["slot_start_kernel", "tile_payload_kernel", "payload_gather_kernel"]
+    device_ms = {
+        "kernel A, kodim01 trimmed": device_ms_per_call(
+            lambda: kernel_a(prep_trim.raw, prep_trim.counts, H, W)),
+        "kernel B, kodim01 kc 128": device_ms_per_call(lambda: kernel_b(*inp_l, 128, H, W)),
+        "kernel B, kodim01 Morton kc 128": device_ms_per_call(lambda: kernel_b(*inp_m, 128, H, W)),
+        "kernel B, fit state kc 128": device_ms_per_call(
+            lambda: kernel_b(*inp_fit, 128, cfg_fit.H, cfg_fit.W)),
+        "kernel C, fit state kc 128": device_ms_per_call(lambda: kernel_c(table_c, bbox_c, cot_t)),
+        "kernel E, binned fit state": device_ms_per_call(lambda: kernel_e(bbox_e, *tb_fit, 256)),
+    }
+    for (kname, order), (inp_, kc) in enum_inputs.items():
+        device_ms[f"kernel B, kodim01 {order}, {kname} kc {kc}"] = device_ms_per_call(
+            lambda inp_=inp_, kc=kc: kernel_b(*inp_, kc, H, W))
+    d_stages = {}
+    for tag, (inp_, cot_, _, _) in d_states.items():
+        fn_d = functools.partial(kernel_d, *inp_, cot_)
+        device_ms[f"kernel D, {tag}"] = device_ms_per_call(fn_d)
+        _, rows_, missing_ = device_time_per_call(fn_d, top=len(names_d), kernels=names_d)
+        d_stages[tag] = None if missing_ else [sum(ms for name, ms in rows_ if n in name)
+                                               for n in names_d]
+    for k, v in device_ms.items():
+        log(f"  {k}: {v:.4f} ms device time a call (queued), {times[k]:.4f} ms back to back")
+    report["device_ms"] = device_ms
     # the same step through the plain binned path and its VJP, for comparison
     cfg_xla = dataclasses.replace(cfg_fit, raster_backend="xla")
     cur_xla = [tr.init_train_state(cfg_fit, tcfg, 0, gaussians=res.state)]
@@ -955,7 +1082,8 @@ def run() -> None:
 
     times[f"train step, {n_timed} active, xla (plain)"] = step_xla_ms = median_ms(one_step_xla)
     log(f"  train step, {n_timed} active, xla (plain): {step_xla_ms:.4f} ms")
-    steps = [("auto (list_t)", one_step, step_ms), ("xla (plain)", one_step_xla, step_xla_ms)]
+    steps = [("auto (list_t)", one_step, step_ms, names_b + ["chunk_backward_kernel"]),
+             ("xla (plain)", one_step_xla, step_xla_ms, [])]
 
     def stepper(state, cfg, target):
         """A train step from ``state`` with a fresh Adam, one step per call."""
@@ -969,62 +1097,77 @@ def run() -> None:
     # the binned step after the growth (stream order: clipping follows id order),
     # and the 2K step
     n_bin, n_2k = int(res_bin.state.num_active), int(res2k.state.num_active)
-    for tag, state, cfg, target in (
+    for tag, state, cfg, target, names in (
             (f"{n_bin} active, pallas, top_k binning", res_bin.state,
-             dataclasses.replace(cfg_bin, bin_method="top_k"), fit_target),
-            (f"{n_bin} active, pallas, kernel E binning", res_bin.state, cfg_bin, fit_target),
-            (f"2K, {n_2k} active, pallas, hier binning", res2k.state, cfg2k, target2k)):
+             dataclasses.replace(cfg_bin, bin_method="top_k"), fit_target, names_a + names_d),
+            (f"{n_bin} active, pallas, kernel E binning", res_bin.state, cfg_bin, fit_target,
+             names_a + names_d + ["tile_bin_kernel"]),
+            (f"2K, {n_2k} active, pallas, hier binning", res2k.state, cfg2k, target2k,
+             names_a + names_d)):
         fn = stepper(state, cfg, target)
         times[f"train step, {tag}"] = ms = median_ms(fn)
         log(f"  train step, {tag}: {ms:.4f} ms")
-        steps.append((tag, fn, ms))
-    for tag, fn, ms_step in steps:
-        busy, top = device_time_per_call(fn, top=6)
+        steps.append((tag, fn, ms, names))
+    for tag, fn, ms_step, names in steps:
+        busy, top, missing = device_time_per_call(fn, top=6, kernels=names)
+        check(busy > 0, f"torch.profiler recorded no device time in a {tag} step")
         log(f"  train step {tag}: device busy {busy:.4f} ms of a {ms_step:.4f} ms step "
             f"({busy / ms_step:.1%}); top device time: "
-            + "; ".join(f"{name[:60]} {ms:.4f} ms" for name, ms in top))
+            + "; ".join(f"{name[:60]} {ms:.4f} ms" for name, ms in top)
+            + (f"; not traced, so left out: {', '.join(missing)}" if missing else ""))
         report.setdefault("train_step_device_time", {})[tag] = dict(
-            busy_ms=busy, step_ms=ms_step, active=n_timed, top=top)
+            busy_ms=busy, step_ms=ms_step, active=n_timed, top=top, not_traced=missing)
 
     # where a full decode's time goes: device time per frame under torch.profiler
-    for backend in ("binned", "list_t"):
-        busy, top = device_time_per_call(lambda: decode_bitstream(kodim01, backend=backend, device=dev))
+    for backend, names in (("binned", names_a), ("list_t", names_b)):
+        busy, top, missing = device_time_per_call(
+            lambda: decode_bitstream(kodim01, backend=backend, device=dev), kernels=names)
+        check(busy > 0, f"torch.profiler recorded no device time in a {backend} decode")
         frame = times[f"frame: decode_bitstream {backend} (parse included)"]
         log(f"  decode_bitstream {backend}: device busy {busy:.4f} ms of a {frame:.4f} ms frame "
             f"({busy / frame:.1%}); top device time: "
-            + "; ".join(f"{name[:60]} {ms:.4f} ms" for name, ms in top))
-        report.setdefault("decode_device_time", {})[backend] = dict(busy_ms=busy, frame_ms=frame,
-                                                                    top=top)
+            + "; ".join(f"{name[:60]} {ms:.4f} ms" for name, ms in top)
+            + (f"; not traced, so left out: {', '.join(missing)}" if missing else ""))
+        report.setdefault("decode_device_time", {})[backend] = dict(
+            busy_ms=busy, frame_ms=frame, top=top, not_traced=missing)
 
     # bounds at the timed inputs: what this run's data needs
     members_a = int(prep_trim.counts.sum())
     bytes_a = members_a * 64 + prep_trim.counts.numel() * 4 + H * W * 3 * 4
     table, bbox, lst, cnt, lo2, hi2 = inp_l
     T = lst.shape[0]
-    tb_x = -(-W // 16)
-    t = torch.arange(T, device=dev)
-    tx, ty = (t % tb_x).float()[:, None], (t // tb_x).float()[:, None]
-    members_b = int(((tx >= bbox[None, :, 0]) & (tx < bbox[None, :, 1]) & (ty >= bbox[None, :, 2])
-                     & (ty < bbox[None, :, 3]) & (table[None, :, 15] > 0)).sum())
+    members_b = list_members(table, bbox, H, W)
     bytes_b = (table.numel() + bbox.numel() + lst.numel() + 3 * T) * 4 + H * W * 3 * 4
     for tag, inp in (("stream order", inp_l), ("Morton order", inp_m)):
-        cnt, lo2, hi2 = inp[3:]
-        rows = int((cnt + (hi2 - lo2).clamp(min=0)).sum()) * 128
+        rows = rows_visited(*inp[3:], 128)
         log(f"  kernel B on kodim01, {tag}: {rows} table rows visited over {T} tiles "
             f"({rows / members_b:.1f} per member)")
         report.setdefault("kernel_b_rows_visited", {})[tag] = rows
+    members_fit = list_members(inp_fit[0], inp_fit[1], cfg_fit.H, cfg_fit.W)
+    rows_fit = rows_visited(*inp_fit[3:], 128)
+    bytes_fit = ((inp_fit[0].numel() + inp_fit[1].numel() + inp_fit[2].numel() + 3 * T) * 4
+                 + cfg_fit.H * cfg_fit.W * 3 * 4)
+    bound_fit, by_fit = bound(members_fit * PIX * OPS_PER_PAIR, bytes_fit)
+    ms_fit, dev_fit = times["kernel B, fit state kc 128"], device_ms["kernel B, fit state kc 128"]
+    log(f"  kernel B on the fit state (Morton order, kc 128): {members_fit} members, {rows_fit} "
+        f"table rows visited ({rows_fit / members_fit:.1f} per member), {ms_fit:.4f} ms back to "
+        f"back, {dev_fit:.4f} ms device time, bound {bound_fit:.5f} ms ({by_fit})")
+    report["kernel_b_fit_state"] = dict(members=members_fit, rows_visited=rows_fit, ms=ms_fit,
+                                        device_ms=dev_fit, bound_ms=bound_fit, bound_by=by_fit)
     bound_a, by_a = bound(members_a * PIX * OPS_PER_PAIR, bytes_a)
     bound_b, by_b = bound(members_b * PIX * OPS_PER_PAIR, bytes_b)
     for (kname, order), (inp_, kc) in enum_inputs.items():
         table_, bbox_, lst_, cnt_, lo2_, hi2_ = inp_
-        rows = int((cnt_ + (hi2_ - lo2_).clamp(min=0)).sum()) * kc
+        rows = rows_visited(cnt_, lo2_, hi2_, kc)
         bytes_ = (table_.numel() + bbox_.numel() + lst_.numel() + 3 * T) * 4 + H * W * 3 * 4
         bound_, by_ = bound(members_b * PIX * OPS_PER_PAIR, bytes_)
-        ms = times[f"kernel B, kodim01 {order}, {kname} kc {kc}"]
+        key = f"kernel B, kodim01 {order}, {kname} kc {kc}"
+        ms, dev_ms = times[key], device_ms[key]
         log(f"  kernel B on kodim01, {order}, {kname} (kc {kc}): {rows} table rows visited "
-            f"({rows / members_b:.1f} per member), {ms:.4f} ms, bound {bound_:.5f} ms ({by_})")
+            f"({rows / members_b:.1f} per member), {ms:.4f} ms back to back, {dev_ms:.4f} ms "
+            f"device time, bound {bound_:.5f} ms ({by_})")
         report.setdefault("kernel_b_enumerations", {})[f"{kname}, {order}"] = dict(
-            kc=kc, rows_visited=rows, ms=ms, bound_ms=bound_, bound_by=by_)
+            kc=kc, rows_visited=rows, ms=ms, device_ms=dev_ms, bound_ms=bound_, bound_by=by_)
     live = table_c[:, 15] > 0
     area = ((bbox_c[:, 1] - bbox_c[:, 0]) * (bbox_c[:, 3] - bbox_c[:, 2]))[live]
     members_c, largest_c = int(area.sum()), int(area.max())
@@ -1038,25 +1181,42 @@ def run() -> None:
     report["kernel_c_input"] = dict(rows=int(live.sum()), members=members_c, largest_bbox_tiles=largest_c,
                                     pairs_on_image=on_image_c, pairs_passing=passing_c,
                                     pass_fraction=pass_frac_c)
-    # kernel D: the gate at every live (slot, pixel) pair on the image, the
-    # rest where it passes; bytes: the live table rows and ids, counts, bbox,
-    # cotangent, output
-    raw_d, counts_d, _, bbox_d = inp_d
-    members_d = int(counts_d.sum())
-    on_image_d, passing_d = gate_slots(raw_d, counts_d, cfg_fit.H, cfg_fit.W)
-    bytes_d = (members_d * (64 + 4) + counts_d.numel() * 4 + bbox_d.numel() * 4
-               + cfg_fit.H * cfg_fit.W * 3 * 4 + bbox_d.shape[0] * 9 * 4)
-    bound_d, by_d = bound(on_image_d * OPS_GATE_C + passing_d * OPS_PASS_C, bytes_d)
+    # kernel D at each state: the gate at every live (slot, pixel) pair on the
+    # image, the rest where it passes; bytes: the live table rows and ids,
+    # counts, bbox, cotangent, output. Its stages' device time from the
+    # profiler above (slot_start_kernel, tile_payload_kernel, payload_gather_kernel).
+    for tag, (inp_, cot_, h_, w_) in d_states.items():
+        raw_, counts_, _, bbox_ = inp_
+        live_ = int(counts_.clamp(0, raw_.shape[1]).sum())
+        tiles_ = bbox_tiles(bbox_, h_, w_)
+        on_, pass_ = gate_slots(raw_, counts_, h_, w_)
+        bytes_ = (live_ * (64 + 4) + counts_.numel() * 4 + bbox_.numel() * 4
+                  + h_ * w_ * 3 * 4 + bbox_.shape[0] * 9 * 4)
+        bound_, by_ = bound(on_ * OPS_GATE_C + pass_ * OPS_PASS_C, bytes_)
+        stages = (" stage 0 (slot_start_kernel) {:.4f} ms, stage 1 (tile_payload_kernel) {:.4f} "
+                  "ms, stage 2 (payload_gather_kernel) {:.4f} ms".format(*d_stages[tag])
+                  if d_stages[tag] else " stages not measured: the profiler did not trace them")
+        ms_, dev_ = times[f"kernel D, {tag}"], device_ms[f"kernel D, {tag}"]
+        log(f"  kernel D, {tag} ({h_}x{w_}, table {tuple(raw_.shape)}): {live_} live slots, "
+            f"{int(counts_.max())} in the fullest tile, {bbox_.shape[0]} Gaussians, tile bbox mean "
+            f"{float(tiles_.float().mean()):.1f} / largest {int(tiles_.max())} tiles; {pass_} of "
+            f"{on_} (slot, pixel) pairs pass the gate; {ms_:.4f} ms a call back to back, "
+            f"{dev_:.4f} ms device time, bound {bound_:.5f} ms ({by_});" + stages)
+        report.setdefault("kernel_d_states", {})[tag] = dict(
+            live_slots=live_, fullest_tile=int(counts_.max()), gaussians=bbox_.shape[0],
+            bbox_tiles_mean=float(tiles_.float().mean()), bbox_tiles_largest=int(tiles_.max()),
+            pairs_on_image=on_, pairs_passing=pass_, ms=ms_, device_ms=dev_, bound_ms=bound_,
+            bound_by=by_, stage_ms=d_stages[tag])
+        if tag == "binned fit state":
+            raw_d, bbox_d = raw_, bbox_
+            members_d, on_image_d, passing_d, bound_d, by_d = live_, on_, pass_, bound_, by_
     # kernel E: the bbox tests its input needs; bytes: the bbox table, ids, counts
     tests_e = scanned_ids(bbox_e, *tb_fit, 256)
     bytes_e = bbox_e.numel() * 4 + t_e.numel() * (256 + 1) * 4
     bound_e, by_e = bound(tests_e * OPS_BIN_TEST, bytes_e)
-    log(f"  kernel D on the binned fit state: {members_d} live slots, {on_image_d} (slot, pixel) "
-        f"pairs on the image, {passing_d} ({passing_d / on_image_d:.4%}) pass the gate; kernel E: "
-        f"{tests_e} bbox tests ({t_e.numel()} tiles x {n_e} rows)")
-    report["kernel_d_input"] = dict(live_slots=members_d, pairs_on_image=on_image_d,
-                                    pairs_passing=passing_d)
+    log(f"  kernel E: {tests_e} bbox tests ({t_e.numel()} tiles x {n_e} rows)")
     report["kernel_e_input"] = dict(tests=tests_e, tiles=t_e.numel(), rows=n_e)
+    dense_key = f"kernel B, kodim01 stream order, dense kc {raster_dense.DENSE_KC}"
     total = {key: sum(n[key] for n in path_launches.values()) for key in kernels}
     report["path_launches"] = path_launches
     kernel_rows = [
@@ -1066,7 +1226,7 @@ def run() -> None:
                       "gaussianimage_plus_tpu/kernels/raster_flat_pallas.py:82 "
                       "(rasterize_prepared_flat)",
              launches=total["a"], max_abs_err=err["a"],
-             ms=times["kernel A, kodim01 trimmed"],
+             ms=times["kernel A, kodim01 trimmed"], device_ms=device_ms["kernel A, kodim01 trimmed"],
              plain_ms=times["plain A, kodim01 trimmed"], bound_ms=bound_a, bound_by=by_a, library_ms=None,
              shape=f"kodim01 bin-once table {tuple(prep_trim.raw.shape)}, {members_a} members"),
         dict(name="chunk_list_forward", route="cuda",
@@ -1080,11 +1240,13 @@ def run() -> None:
                       "gaussianimage_plus_tpu/kernels/raster_dense_pallas.py:593 "
                       "(rasterize_range_pallas)",
              launches=total["b"], max_abs_err=err["b"],
-             ms=times["kernel B, kodim01 kc 128"],
+             ms=times["kernel B, kodim01 kc 128"], device_ms=device_ms["kernel B, kodim01 kc 128"],
              plain_ms=times["plain B, kodim01 kc 128"], bound_ms=bound_b, bound_by=by_b,
              library_ms=None,
              shape=f"kodim01 table {tuple(table.shape)}, kc 128, lmax {lst.shape[1]}, "
-                   f"{members_b} members"),
+                   f"{members_b} members",
+             ms_fit_state=ms_fit, device_ms_fit_state=dev_fit,
+             ms_dense=times[dense_key], device_ms_dense=device_ms[dense_key]),
         dict(name="chunk_backward", route="cuda",
              source="gaussianimage_plus_tpu_torch/csrc/chunk_backward.cu",
              replaces="gaussianimage_plus_tpu/kernels/raster_list_pallas.py:701 "
@@ -1094,7 +1256,8 @@ def run() -> None:
                       "(dense_backward, body :102-183); gaussianimage_plus_tpu/kernels/"
                       "raster_dense_pallas.py:330 (sweep_backward, body :185-273)",
              launches=total["c"], max_abs_err=err["c"],
-             ms=times["kernel C, fit state kc 128"], plain_ms=times["plain C, fit state kc 128"],
+             ms=times["kernel C, fit state kc 128"], device_ms=device_ms["kernel C, fit state kc 128"],
+             plain_ms=times["plain C, fit state kc 128"],
              bound_ms=bound_c, bound_by=by_c, library_ms=None,
              shape=f"fit state after growth, table {tuple(table_c.shape)}, {int(live.sum())} "
                    f"valid rows, {members_c} (row, tile) members, largest bbox {largest_c} tiles, "
@@ -1105,17 +1268,21 @@ def run() -> None:
              replaces="gaussianimage_plus_tpu/kernels/raster_pallas.py:241 (_run_bwd, body "
                       ":151-204; with the scatter-add :426-440 and _gather_grads :364)",
              launches=total["d"], max_abs_err=err["d"],
-             ms=times["kernel D, binned fit state"], plain_ms=times["plain D, binned fit state"],
+             ms=times["kernel D, binned fit state"], device_ms=device_ms["kernel D, binned fit state"],
+             plain_ms=times["plain D, binned fit state"],
              bound_ms=bound_d, bound_by=by_d, library_ms=None,
              shape=f"binned fit state after growth, table {tuple(raw_d.shape)}, {members_d} live "
                    f"slots, {bbox_d.shape[0]} Gaussians, {passing_d} of {on_image_d} (slot, "
-                   f"pixel) pairs pass the gate"),
+                   f"pixel) pairs pass the gate",
+             ms_by_state={tag: times[f"kernel D, {tag}"] for tag in d_states},
+             device_ms_by_state={tag: device_ms[f"kernel D, {tag}"] for tag in d_states}),
         dict(name="tile_bin", route="cuda",
              source="gaussianimage_plus_tpu_torch/csrc/tile_bin.cu",
              replaces="gaussianimage_plus_tpu/kernels/binning_pallas.py:92 "
                       "(bin_gaussians_pallas, body :43-89)",
              launches=total["e"], max_abs_err=err["e"],
-             ms=times["kernel E, binned fit state"], plain_ms=times["plain E, binned fit state"],
+             ms=times["kernel E, binned fit state"], device_ms=device_ms["kernel E, binned fit state"],
+             plain_ms=times["plain E, binned fit state"],
              bound_ms=bound_e, bound_by=by_e,
              library_ms=times["torch.topk(key, 256), binned fit state"],
              shape=f"binned fit state after growth, {t_e.numel()} tiles x {n_e} rows, cap 256, "

@@ -46,7 +46,14 @@ def uniform_decompress(params: UniformQuantParams, code: torch.Tensor) -> torch.
 
 
 def log_decompress(state: LogQuantState, code: torch.Tensor) -> torch.Tensor:
-    return torch.exp(code * state.scale + state.beta)
+    """``exp(code * scale + beta)``: the argument in the code's float type, as
+    the JAX package computes it, the ``exp`` in float64 and rounded once.
+    PyTorch's CPU ``exp`` of float32 (MKL's vector math, split across
+    threads) has, in a fresh process, returned a whole thread's chunk at up
+    to 1.5e-4 relative error; float64 keeps the result within an ulp of the
+    true exponential on every device."""
+    arg = code * state.scale + state.beta
+    return torch.exp(arg.double()).to(arg.dtype)
 
 
 def hybrid_decompress(params: HybridQuantParams, log_state: LogQuantState,

@@ -18,16 +18,28 @@
 // its payload rows [v_xy(2), v_conic(3), v_rgb(3), v_opac] over the tiles
 // whose first counts[t] slots hold it.
 //
-// Design, two kernels on one stream (blocks run in parallel, so a sum across
-// tiles needs a second pass):
-//   stage 1, one block per tile: the tile's cotangent goes into shared memory
-//     once; each of the 8 warps takes the tile's slots in turn, its lanes
-//     stride the 256 pixels (8 each), and a fixed butterfly of shuffles sums
-//     the ten partials; lane 0 writes the slot's payload row [T, K, 9].
-//   stage 2, one thread per Gaussian: it walks the tiles of its tile bbox
-//     (tile_bbox of the projected radii, the binner's membership rectangle) in
-//     row-major order, binary-searches its id among the tile's ascending,
-//     front-packed ids[t, :counts[t]], and adds the payload row where found.
+// Design, three kernels on one stream (blocks run in parallel, so a sum
+// across tiles needs a second pass):
+//   stage 0, one block: start[t], the exclusive sum of the clamped counts,
+//     which numbers the live (tile, slot) pairs tile-major.
+//   stage 1, a persistent grid walking those numbers 32 live slots at a
+//     time (a binary search in start finds a slot's tile):
+//     8 threads per slot, thread j summing the pixels j, j + 8, ... (32, in
+//     a fixed order, unrolled for independent work in flight); the ten
+//     partials of a slot's 8 threads meet in a fixed 3-step butterfly of
+//     shuffles, and the slot's payload row [T, K, 9] is written. So every
+//     block holds 32 live slots whatever the tiles' occupancy (a tile of 159
+//     slots spreads over five blocks), and the cross-lane sum is 30
+//     shuffles for 32 pixels of work. The pixel loop is unrolled, so each
+//     thread's pixel features are constants. The cotangent is read through L1,
+//     where the 8 threads of a slot and the slots of one tile share it.
+//   stage 2, one warp per Gaussian: lane l takes the tiles l, l + 32, ... of
+//     the Gaussian's tile bbox (tile_bbox of the projected radii, the
+//     binner's membership rectangle) in row-major order, binary-searches
+//     the Gaussian's id among the tile's ascending, front-packed
+//     ids[t, :counts[t]] and adds the payload row where found; a fixed
+//     butterfly then sums the 32 lanes. The searches of one Gaussian run in
+//     parallel, so a bbox of 81 tiles costs three searches, not 81 in a row.
 // No float atomics: every sum runs in a fixed order, so two launches give the
 // same bits. The walk is exact for any bbox size, so the JAX package's
 // gather_tiles budget and its scatter fallback have no counterpart here.
@@ -43,8 +55,8 @@
 // tile_payload): -fmad=false, and w and sigma are kernel A's expressions and
 // explicit fmaf chain, so a slot passes the gate here exactly when it
 // contributed to kernel A's image. The kernels allocate nothing (the wrapper
-// passes the payload scratch), run on the caller's stream and do not
-// synchronise; the C entry point returns the first cudaGetLastError().
+// passes the payload and slot-offset scratch), run on the caller's stream and
+// do not synchronise; the C entry point returns the first cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -54,176 +66,268 @@ constexpr int kBlock = 16;
 constexpr int kPix = kBlock * kBlock;
 constexpr int kCols = 16;
 constexpr int kWarp = 32;
-constexpr int kWarps = 8;                   // warps per stage-1 block
-constexpr int kPixPerLane = kPix / kWarp;   // 8
+constexpr int kScanThreads = 1024;          // stage 0
+constexpr int kScanLoads = 8;               // counts in flight per stage-0 thread
+constexpr int kSlotThreads = 8;             // stage-1 threads per live slot
+constexpr int kSlotsPerBlock = 32;
+constexpr int kThreads = kSlotThreads * kSlotsPerBlock;
+constexpr int kPixPerThread = kPix / kSlotThreads;   // 32
+constexpr int kPart = 10;                   // partial sums per slot
 constexpr int kPay = 9;                     // payload columns
-constexpr int kGatherThreads = 128;
+constexpr int kGatherWarps = 8;             // stage-2 Gaussians per block
 
-// Butterfly sum: every lane ends with the same value, in a fixed order.
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ int live_count(const int* counts, int t, int K) {
+  const int n = counts[t];
+  return n < 0 ? 0 : (n > K ? K : n);
 }
 
-__global__ void __launch_bounds__(kWarp * kWarps)
-tile_payload_kernel(const float* __restrict__ raw,
-                    const int* __restrict__ counts,
-                    const float* __restrict__ v_img,
-                    float* __restrict__ payload,
-                    int K, int tb_x, int H, int W) {
-  __shared__ float vo[kPix][3];   // the tile's cotangent, zero off the image
-  const int t = blockIdx.x;
-  const int tx = t % tb_x, ty = t / tb_x;
-  for (int p = threadIdx.x; p < kPix; p += blockDim.x) {
-    const int x = tx * kBlock + p % kBlock;
-    const int y = ty * kBlock + p / kBlock;
-    const bool in = x < W && y < H;
-    const float* src = v_img + (static_cast<size_t>(y) * W + x) * 3;
-    vo[p][0] = in ? src[0] : 0.f;
-    vo[p][1] = in ? src[1] : 0.f;
-    vo[p][2] = in ? src[2] : 0.f;
+// start[t] = live slots in the tiles before t (counts clamped to [0, K]);
+// start[T] = all live slots. One block scans 1024 tiles at a time.
+__global__ void __launch_bounds__(kScanThreads)
+slot_start_kernel(const int* __restrict__ counts, int* __restrict__ start, int T, int K) {
+  __shared__ int warp_sum[kScanThreads / kWarp];
+  __shared__ int carry;
+  const int i = threadIdx.x, lane = i % kWarp, warp = i / kWarp;
+  if (i == 0) carry = 0;
+  for (int base0 = 0; base0 < T; base0 += kScanLoads * kScanThreads) {
+    int n[kScanLoads];
+#pragma unroll
+    for (int k = 0; k < kScanLoads; ++k) {    // issue the loads together
+      const int t = base0 + k * kScanThreads + i;
+      n[k] = t < T ? live_count(counts, t, K) : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < kScanLoads; ++k) {
+      int x = n[k];                          // inclusive sum within the warp
+#pragma unroll
+      for (int off = 1; off < kWarp; off <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, off);
+        if (lane >= off) x += y;
+      }
+      __syncthreads();                       // the previous round read warp_sum and carry
+      if (lane == kWarp - 1) warp_sum[warp] = x;
+      __syncthreads();
+      if (warp == 0) {                       // inclusive sum over the warps
+        int w = warp_sum[lane];
+#pragma unroll
+        for (int off = 1; off < kWarp; off <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, w, off);
+          if (lane >= off) w += y;
+        }
+        warp_sum[lane] = w;
+      }
+      __syncthreads();
+      const int excl = carry + (warp > 0 ? warp_sum[warp - 1] : 0) + x - n[k];
+      const int t = base0 + k * kScanThreads + i;
+      if (t < T) start[t] = excl;
+      __syncthreads();
+      if (i == kScanThreads - 1) carry = excl + n[k];
+    }
   }
   __syncthreads();
+  if (i == 0) start[T] = carry;
+}
 
-  int n = counts[t];
-  n = n < 0 ? 0 : (n > K ? K : n);
-  const int lane = threadIdx.x % kWarp;
-  const int warp = threadIdx.x / kWarp;
-  const float tx0 = static_cast<float>(tx * kBlock);
-  const float ty0 = static_cast<float>(ty * kBlock);
+__global__ void __launch_bounds__(kThreads, 4)
+tile_payload_kernel(const float* __restrict__ raw,
+                    const int* __restrict__ start,
+                    const float* __restrict__ v_img,
+                    float* __restrict__ payload,
+                    int T, int K, int tb_x, int H, int W) {
+  const int n_items = start[T];
+  const int ls = threadIdx.x / kSlotThreads, sub = threadIdx.x % kSlotThreads;
   const float thresh = 1.0f / 255.0f;
-  // this lane's pixels: p = lane + 32 k -> px = lane % 16, py = lane / 16 + 2 k
-  const int pxi = lane % kBlock;
-  const float px = static_cast<float>(pxi);
-  const float px2 = px * px;
-  const bool col_in = tx * kBlock + pxi < W;
-
-  for (int s = warp; s < n; s += kWarps) {
-    const float4* row = reinterpret_cast<const float4*>(
-        raw + (static_cast<size_t>(t) * K + s) * kCols);
-    const float4 a = row[0];   // c1 c2 c3 mx
-    const float4 b = row[1];   // my r g b
-    const float4 o = row[2];   // opac ...
-    const float4 d = row[3];   // ... valid
-    const float c1 = a.x, c2 = a.y, c3 = a.z, opac = o.x;
-    const float lmx = a.w - tx0;
-    const float lmy = b.x - ty0;
-    // kernel A's stage_row expressions, one rounding per operation
-    const float w0 = 0.5f * c1, w1 = 0.5f * c3, w2 = c2;
-    const float w3 = -(c1 * lmx + c2 * lmy);
-    const float w4 = -(c2 * lmx + c3 * lmy);
-    const float w5 = 0.5f * c1 * lmx * lmx + 0.5f * c3 * lmy * lmy + c2 * lmx * lmy;
-    const bool valid = d.w > 0.f;            // uniform across the warp
-    float s_r = 0.f, s_g = 0.f, s_b = 0.f, s_o = 0.f;
-    float m_xx = 0.f, m_yy = 0.f, m_xy = 0.f, m_x = 0.f, m_y = 0.f, m_1 = 0.f;
+  // this thread's pixels p = sub + 8 k: columns sub and sub + 8, row k / 2
+  const float pxa = static_cast<float>(sub), pxb = static_cast<float>(sub + kSlotThreads);
+  const float px2a = pxa * pxa, px2b = pxb * pxb;
+  for (int base = blockIdx.x * kSlotsPerBlock; base < n_items;
+       base += gridDim.x * kSlotsPerBlock) {     // uniform across the block
+    const int it = base + ls;
+    float acc[kPart];
 #pragma unroll
-    for (int k = 0; k < kPixPerLane; ++k) {
-      const int pyi = lane / kBlock + 2 * k;
-      if (!valid || !col_in || ty * kBlock + pyi >= H) continue;   // zero cotangent
-      const float* v = vo[pyi * kBlock + pxi];
-      const float v0 = v[0], v1 = v[1], v2 = v[2];
-      const float py = static_cast<float>(pyi);
-      const float pxy = px * py, py2 = py * py;
-      float sg = w5;
-      sg = fmaf(w4, py, sg);
-      sg = fmaf(w3, px, sg);
-      sg = fmaf(w2, pxy, sg);
-      sg = fmaf(w1, py2, sg);
-      sg = fmaf(w0, px2, sg);
-      const float vis = expf(-sg);
-      const float alpha = fminf(1.0f, opac * vis);
-      if (!(sg >= 0.f && alpha >= thresh)) continue;
-      const float v_alpha = b.y * v0 + b.z * v1 + b.w * v2;
-      s_r = fmaf(alpha, v0, s_r);
-      s_g = fmaf(alpha, v1, s_g);
-      s_b = fmaf(alpha, v2, s_b);
-      const float v_sigma = -(opac * vis) * v_alpha;
-      s_o = fmaf(vis, v_alpha, s_o);
-      m_xx = fmaf(v_sigma, px2, m_xx);
-      m_yy = fmaf(v_sigma, py2, m_yy);
-      m_xy = fmaf(v_sigma, pxy, m_xy);
-      m_x = fmaf(v_sigma, px, m_x);
-      m_y = fmaf(v_sigma, py, m_y);
-      m_1 += v_sigma;
+    for (int k = 0; k < kPart; ++k) acc[k] = 0.f;
+    float c1 = 0.f, c2 = 0.f, c3 = 0.f, lmx = 0.f, lmy = 0.f;
+    size_t flat = 0;
+    if (it < n_items) {
+      int lo = 0, hi = T;                    // the tile: start[t] <= it < start[t + 1]
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (start[mid] <= it) lo = mid; else hi = mid;
+      }
+      const int t = lo;
+      flat = static_cast<size_t>(t) * K + (it - start[t]);
+      const int tx = t % tb_x, ty = t / tb_x;
+      const float tx0 = static_cast<float>(tx * kBlock);
+      const float ty0 = static_cast<float>(ty * kBlock);
+      const float4* row = reinterpret_cast<const float4*>(raw + flat * kCols);
+      const float4 a = row[0];   // c1 c2 c3 mx
+      const float4 b = row[1];   // my r g b
+      const float4 o = row[2];   // opac ...
+      const float4 d = row[3];   // ... valid
+      c1 = a.x; c2 = a.y; c3 = a.z;
+      const float opac = o.x;
+      lmx = a.w - tx0;
+      lmy = b.x - ty0;
+      // kernel A's stage_row expressions, one rounding per operation
+      const float w0 = 0.5f * c1, w1 = 0.5f * c3, w2 = c2;
+      const float w3 = -(c1 * lmx + c2 * lmy);
+      const float w4 = -(c2 * lmx + c3 * lmy);
+      const float w5 = 0.5f * c1 * lmx * lmx + 0.5f * c3 * lmy * lmy + c2 * lmx * lmy;
+      const int h_in = H - ty * kBlock;      // rows on the image
+      const bool in_a = sub < W - tx * kBlock, in_b = sub + kSlotThreads < W - tx * kBlock;
+      const float* va = v_img + (static_cast<size_t>(ty * kBlock) * W + tx * kBlock + sub) * 3;
+      const float* vb = va + kSlotThreads * 3;
+      if (d.w > 0.f) {
+#pragma unroll
+        for (int k = 0; k < kPixPerThread; ++k) {
+          const bool second = k % 2 != 0;
+          const int pyi = k / 2;
+          if (!(second ? in_b : in_a) || pyi >= h_in) continue;   // zero cotangent
+          const float* v = (second ? vb : va) + static_cast<size_t>(pyi) * W * 3;
+          const float v0 = __ldg(v), v1 = __ldg(v + 1), v2 = __ldg(v + 2);
+          const float px = second ? pxb : pxa, px2 = second ? px2b : px2a;
+          const float py = static_cast<float>(pyi), py2 = py * py;
+          const float pxy = px * py;
+          float sg = w5;
+          sg = fmaf(w4, py, sg);
+          sg = fmaf(w3, px, sg);
+          sg = fmaf(w2, pxy, sg);
+          sg = fmaf(w1, py2, sg);
+          sg = fmaf(w0, px2, sg);
+          const float vis = expf(-sg);
+          const float alpha = fminf(1.0f, opac * vis);
+          if (!(sg >= 0.f && alpha >= thresh)) continue;
+          const float v_alpha = b.y * v0 + b.z * v1 + b.w * v2;
+          acc[0] = fmaf(alpha, v0, acc[0]);
+          acc[1] = fmaf(alpha, v1, acc[1]);
+          acc[2] = fmaf(alpha, v2, acc[2]);
+          const float v_sigma = -(opac * vis) * v_alpha;
+          acc[3] = fmaf(vis, v_alpha, acc[3]);
+          acc[4] = fmaf(v_sigma, px2, acc[4]);
+          acc[5] = fmaf(v_sigma, py2, acc[5]);
+          acc[6] = fmaf(v_sigma, pxy, acc[6]);
+          acc[7] = fmaf(v_sigma, px, acc[7]);
+          acc[8] = fmaf(v_sigma, py, acc[8]);
+          acc[9] += v_sigma;
+        }
+      }
     }
-    s_r = warp_sum(s_r);
-    s_g = warp_sum(s_g);
-    s_b = warp_sum(s_b);
-    s_o = warp_sum(s_o);
-    const float Sxx = warp_sum(m_xx), Syy = warp_sum(m_yy), Sxy = warp_sum(m_xy);
-    const float Sx = warp_sum(m_x), Sy = warp_sum(m_y), S1 = warp_sum(m_1);
-    if (lane == 0) {
+    // fixed butterfly over the slot's 8 threads: each ends with the sums
+#pragma unroll
+    for (int k = 0; k < kPart; ++k) {
+#pragma unroll
+      for (int off = kSlotThreads / 2; off > 0; off >>= 1)
+        acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+    }
+    if (it < n_items && sub == 0) {
+      const float Sxx = acc[4], Syy = acc[5], Sxy = acc[6], Sx = acc[7], Sy = acc[8], S1 = acc[9];
       const float mom_x = lmx * S1 - Sx;
       const float mom_y = lmy * S1 - Sy;
-      float* dst = payload + (static_cast<size_t>(t) * K + s) * kPay;
+      float* dst = payload + flat * kPay;
       dst[0] = c1 * mom_x + c2 * mom_y;
       dst[1] = c2 * mom_x + c3 * mom_y;
       dst[2] = 0.5f * (lmx * lmx * S1 - 2.0f * lmx * Sx + Sxx);
       dst[3] = 0.5f * (lmx * lmy * S1 - lmx * Sy - lmy * Sx + Sxy);
       dst[4] = 0.5f * (lmy * lmy * S1 - 2.0f * lmy * Sy + Syy);
-      dst[5] = s_r;
-      dst[6] = s_g;
-      dst[7] = s_b;
-      dst[8] = s_o;
+      dst[5] = acc[0];
+      dst[6] = acc[1];
+      dst[7] = acc[2];
+      dst[8] = acc[3];
     }
   }
 }
 
-__global__ void __launch_bounds__(kGatherThreads)
+__global__ void __launch_bounds__(kWarp * kGatherWarps)
 payload_gather_kernel(const int* __restrict__ ids,
                       const int* __restrict__ counts,
                       const int4* __restrict__ bbox,
                       const float* __restrict__ payload,
                       float* __restrict__ out,
                       int N, int K, int tb_x, int tb_y) {
-  const int g = blockIdx.x * kGatherThreads + threadIdx.x;
-  if (g >= N) return;
+  const int g = blockIdx.x * kGatherWarps + threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (g >= N) return;                        // uniform across the warp
   const int4 bb = bbox[g];                   // xmin xmax ymin ymax (tiles)
   const int x0 = max(bb.x, 0), x1 = min(bb.y, tb_x);
   const int y0 = max(bb.z, 0), y1 = min(bb.w, tb_y);
+  const int bw = max(x1 - x0, 0);
+  const int area = bw * max(y1 - y0, 0);
   float acc[kPay];
 #pragma unroll
   for (int i = 0; i < kPay; ++i) acc[i] = 0.f;
-  for (int ty = y0; ty < y1; ++ty) {
-    for (int tx = x0; tx < x1; ++tx) {
-      const int t = ty * tb_x + tx;
-      int n = counts[t];
-      n = n < 0 ? 0 : (n > K ? K : n);
-      const int* row = ids + static_cast<size_t>(t) * K;
-      int lo = 0, hi = n;                    // first slot whose id >= g
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (row[mid] < g) lo = mid + 1; else hi = mid;
-      }
-      if (lo < n && row[lo] == g) {
-        const float* p = payload + (static_cast<size_t>(t) * K + lo) * kPay;
+  for (int j = lane; j < area; j += kWarp) {
+    const int t = (y0 + j / bw) * tb_x + x0 + j % bw;
+    int n = counts[t];
+    n = n < 0 ? 0 : (n > K ? K : n);
+    const int* row = ids + static_cast<size_t>(t) * K;
+    int lo = 0, hi = n;                      // first slot whose id >= g
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (row[mid] < g) lo = mid + 1; else hi = mid;
+    }
+    if (lo < n && row[lo] == g) {
+      const float* p = payload + (static_cast<size_t>(t) * K + lo) * kPay;
 #pragma unroll
-        for (int i = 0; i < kPay; ++i) acc[i] += p[i];
-      }
+      for (int i = 0; i < kPay; ++i) acc[i] += p[i];
     }
   }
-  float* dst = out + static_cast<size_t>(g) * kPay;
+  // fixed butterfly: every lane ends with the same sums
 #pragma unroll
-  for (int i = 0; i < kPay; ++i) dst[i] = acc[i];
+  for (int i = 0; i < kPay; ++i) {
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off >>= 1)
+      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+  }
+  float mine = acc[0];
+#pragma unroll
+  for (int i = 1; i < kPay; ++i) mine = lane == i ? acc[i] : mine;
+  if (lane < kPay) out[static_cast<size_t>(g) * kPay + lane] = mine;
+}
+
+// Stage 1's persistent grid on this device: as many blocks as the card keeps
+// resident at once, found once per device.
+cudaError_t resident_blocks(int* blocks) {
+  constexpr int kDevices = 64;
+  static int cached[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && cached[dev] > 0) {
+    *blocks = cached[dev];
+    return cudaSuccess;
+  }
+  int sms = 0, per_sm = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tile_payload_kernel,
+                                                            kThreads, 0)) != cudaSuccess)
+    return err;
+  *blocks = max(1, sms * per_sm);
+  if (dev < kDevices) cached[dev] = *blocks;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" int tile_table_backward(const float* raw, const int* counts, const int* ids,
                                    const int* bbox, const float* v_img, float* payload,
-                                   float* out, int T, int K, int N, int tb_x, int tb_y,
-                                   int H, int W, void* stream) {
+                                   int* start, float* out, int T, int K, int N, int tb_x,
+                                   int tb_y, int H, int W, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (T > 0 && K > 0) {
-    tile_payload_kernel<<<T, kWarp * kWarps, 0, st>>>(raw, counts, v_img, payload,
-                                                       K, tb_x, H, W);
-    const cudaError_t err = cudaGetLastError();
+    slot_start_kernel<<<1, kScanThreads, 0, st>>>(counts, start, T, K);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int resident = 0;
+    if ((err = resident_blocks(&resident)) != cudaSuccess) return static_cast<int>(err);
+    const int blocks = min(resident, (T * K + kSlotsPerBlock - 1) / kSlotsPerBlock);
+    tile_payload_kernel<<<blocks, kThreads, 0, st>>>(raw, start, v_img, payload, T, K, tb_x,
+                                                      H, W);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (N > 0) {
-    const int blocks = (N + kGatherThreads - 1) / kGatherThreads;
-    payload_gather_kernel<<<blocks, kGatherThreads, 0, st>>>(
+    const int blocks = (N + kGatherWarps - 1) / kGatherWarps;
+    payload_gather_kernel<<<blocks, kWarp * kGatherWarps, 0, st>>>(
         ids, counts, reinterpret_cast<const int4*>(bbox), payload, out, N, K, tb_x, tb_y);
   }
   return static_cast<int>(cudaGetLastError());

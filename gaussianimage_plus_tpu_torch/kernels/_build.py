@@ -22,6 +22,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG.parent / "build" / "torch_kernels"
@@ -90,6 +92,19 @@ def load(name: str, setup) -> ctypes.CDLL:
             setup(lib)
             _libs[name] = lib
         return _libs[name]
+
+
+def launch(dev: torch.device, fn, *args) -> int:
+    """Call a kernel's C entry point ``fn(*args, stream)`` on the current
+    stream of CUDA device ``dev``, made the current device for the call when
+    it is not; returns the entry point's ``cudaError_t``. It reads the raw
+    stream handle: building a ``torch.cuda.Stream`` and switching devices on
+    every call cost the host more than the kernels' three launches."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
 def check(rc: int, what: str) -> None:

@@ -60,10 +60,8 @@ def tile_bin(bbox: torch.Tensor, tb_x: int, tb_y: int, cap: int):
     lib = _build.load("tile_bin", _setup)
     ids = torch.empty((T, cap), dtype=torch.int32, device=dev)
     count = torch.empty((T,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tile_bin(bbox.data_ptr(), ids.data_ptr(), count.data_ptr(),
-                          bbox.shape[0], T, tb_x, cap, stream)
+    rc = _build.launch(dev, lib.tile_bin, bbox.data_ptr(), ids.data_ptr(), count.data_ptr(),
+                       bbox.shape[0], T, tb_x, cap)
     _build.check(rc, "tile_bin")
     tile_bin.launches += 1
     return ids, count

@@ -8,8 +8,9 @@ differentiable ``rasterize_pallas``) and of ``kernels/raster_flat_pallas.py``
 they compute one function, so both route to one Hopper kernel here:
 ``tile_table_forward`` (``csrc/tile_table_forward.cu``, kernel A). The
 backward (TPU ``_run_bwd``, #2, then a scatter-add or ``_gather_grads``) is
-kernel D, ``tile_table_backward`` (``csrc/tile_table_backward.cu``): a
-per-(tile, slot) payload pass and a per-Gaussian gather pass.
+kernel D, ``tile_table_backward`` (``csrc/tile_table_backward.cu``): a scan
+that numbers the live (tile, slot) pairs, a payload pass over them and a
+per-Gaussian gather pass.
 
 Deviation, on purpose: the JAX backward scatter-adds the payload by default
 and gathers it per Gaussian only under a static tile budget
@@ -138,10 +139,8 @@ def tile_table_forward(raw: torch.Tensor, counts: torch.Tensor,
         raise ValueError("raw and counts must be contiguous")
     lib = _build.load("tile_table_forward", _setup)
     out = torch.empty((H, W, 3), dtype=torch.float32, device=raw.device)
-    with torch.cuda.device(raw.device):
-        stream = torch.cuda.current_stream(raw.device).cuda_stream
-        rc = lib.tile_table_forward(raw.data_ptr(), counts.data_ptr(), out.data_ptr(),
-                                    raw.shape[0], raw.shape[1], tb_x, H, W, stream)
+    rc = _build.launch(raw.device, lib.tile_table_forward, raw.data_ptr(), counts.data_ptr(),
+                       out.data_ptr(), raw.shape[0], raw.shape[1], tb_x, H, W)
     _build.check(rc, "tile_table_forward")
     tile_table_forward.launches += 1
     return out
@@ -177,7 +176,7 @@ def tile_table_backward_plain(raw: torch.Tensor, counts: torch.Tensor, ids: torc
 
 def _setup_bwd(lib):
     lib.tile_table_backward.restype = ctypes.c_int
-    lib.tile_table_backward.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    lib.tile_table_backward.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                                         + [ctypes.c_void_p])
 
 
@@ -217,13 +216,15 @@ def tile_table_backward(raw: torch.Tensor, counts: torch.Tensor, ids: torch.Tens
         raise ValueError("inputs must be contiguous")
     N = bbox.shape[0]
     lib = _build.load("tile_table_backward", _setup_bwd)
-    payload = torch.empty((T, K, 9), dtype=torch.float32, device=dev)
+    # one scratch allocation: the payload [T, K, 9], then the int32 count of
+    # live slots before each tile [T + 1]
+    scratch = torch.empty((T * K * 9 + T + 1,), dtype=torch.float32, device=dev)
+    payload = scratch.data_ptr()
+    start = payload + T * K * 9 * scratch.element_size()
     out = torch.empty((N, 9), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tile_table_backward(raw.data_ptr(), counts.data_ptr(), ids.data_ptr(),
-                                     bbox.data_ptr(), v_img.data_ptr(), payload.data_ptr(),
-                                     out.data_ptr(), T, K, N, tb_x, tb_y, H, W, stream)
+    rc = _build.launch(dev, lib.tile_table_backward, raw.data_ptr(), counts.data_ptr(),
+                       ids.data_ptr(), bbox.data_ptr(), v_img.data_ptr(), payload, start,
+                       out.data_ptr(), T, K, N, tb_x, tb_y, H, W)
     _build.check(rc, "tile_table_backward")
     tile_table_backward.launches += 1
     return out

@@ -191,12 +191,10 @@ def chunk_list_forward(table, bbox, lst, cnt, lo2, hi2, kc: int,
         raise ValueError("inputs must be contiguous")
     lib = _build.load("chunk_list_forward", _setup)
     out = torch.empty((H, W, 3), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.chunk_list_forward(
-            table.data_ptr(), bbox.data_ptr(), lst.data_ptr(), cnt.data_ptr(),
-            lo2.data_ptr(), hi2.data_ptr(), out.data_ptr(),
-            T, Np // kc, kc, lst.shape[1], tb_x, H, W, stream)
+    rc = _build.launch(
+        dev, lib.chunk_list_forward, table.data_ptr(), bbox.data_ptr(), lst.data_ptr(),
+        cnt.data_ptr(), lo2.data_ptr(), hi2.data_ptr(), out.data_ptr(),
+        T, Np // kc, kc, lst.shape[1], tb_x, H, W)
     _build.check(rc, "chunk_list_forward")
     chunk_list_forward.launches += 1
     return out
@@ -280,10 +278,8 @@ def chunk_backward(table: torch.Tensor, bbox: torch.Tensor, v_img: torch.Tensor)
     tb_x, tb_y = tile_bounds_for(H, W, BLOCK_H, BLOCK_W)
     lib = _build.load("chunk_backward", _setup_bwd)
     out = torch.empty((Np, COLS), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.chunk_backward(table.data_ptr(), bbox.data_ptr(), v_img.data_ptr(),
-                                out.data_ptr(), Np, tb_x, tb_y, H, W, stream)
+    rc = _build.launch(dev, lib.chunk_backward, table.data_ptr(), bbox.data_ptr(),
+                       v_img.data_ptr(), out.data_ptr(), Np, tb_x, tb_y, H, W)
     _build.check(rc, "chunk_backward")
     chunk_backward.launches += 1
     return out

@@ -118,3 +118,21 @@ def test_quantizer_decoders_match_jax():
         tq.LogQuantState(beta=torch.as_tensor(lbeta), scale=torch.as_tensor(lscale)),
         torch.as_tensor(code))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=0)
+
+
+def test_log_decompress_first_in_a_fresh_process_is_rounded_float64():
+    """The log decoder is the first ``exp`` of fresh processes, as in a test
+    worker's first stream: each result equals float64 ``exp`` rounded to
+    float32 bit for bit (``utils/exp_drift.py`` reproduces the float32 drift
+    this guards against)."""
+    import json
+    import subprocess
+    import sys
+
+    out = subprocess.run([sys.executable, "-m", "gaussianimage_plus_tpu_torch.utils.exp_drift",
+                          "--op", "log_decompress", "--runs", "3", "--jobs", "3"],
+                         capture_output=True, text=True, check=True,
+                         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__)))).stdout
+    lines = [json.loads(s) for s in out.strip().splitlines()]
+    assert [r["error"] for r in lines[:-1]] == [0.0, 0.0, 0.0]
+    assert lines[-1]["drifted"] == 0

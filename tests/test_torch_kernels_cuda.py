@@ -18,7 +18,22 @@ sigma >= 0 or alpha >= 1/255 gate. Kernel C: per payload column, max
 pixels and tiles run in another order), and two launches give the same bits.
 Kernel D: the same, per column of its [N, 9] output. Kernel E: ids and counts
 equal the plain version's exactly.
+
+Kernel B stages each tile's members into a shared list of 512 and blends it
+whenever the next batch of 256 visited rows might not fit. Kernel D numbers
+the live (tile, slot) pairs with a scan (stage 0), gives every live slot 8
+threads on a persistent grid of 32 slots a block (stage 1, so one tile's
+slots may spread over several blocks), and sums each Gaussian's payload with
+one warp whose lanes search its bbox tiles (stage 2). The cases below drive
+those paths: a tile with 600 members (several blends of B's list), members
+reached only through the residual interval, every chunk enumeration, a
+Gaussian whose bbox covers the whole grid (stage 2's lanes loop), tiles over
+their cap (a bbox tile lacks the slot), a tile of 300 live slots (spread over
+ten blocks), invalid rows, ragged edge tiles, and two launches against each
+other.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -26,7 +41,8 @@ import torch
 
 from gaussianimage_plus_tpu_torch.core.binning import bin_gaussians
 from gaussianimage_plus_tpu_torch.core.gaussian2d import project_gaussians_2d_covariance
-from gaussianimage_plus_tpu_torch.kernels import binning_tiles, raster_binned, raster_list
+from gaussianimage_plus_tpu_torch.kernels import (binning_tiles, raster_binned, raster_dense,
+                                                  raster_list)
 
 ATOL, RTOL, MAX_FRAC = 2e-5, 1e-5, 1e-4
 
@@ -38,13 +54,23 @@ def card():
     return torch.device("cuda")
 
 
-def _scene(n, H, W, seed, crowd=0):
+def _scene(n, H, W, seed, crowd=0, spread=0.0, n_invalid=0, n_huge=0):
+    """``crowd`` centres at (12, 12) (spread uniformly over +- ``spread``),
+    the last ``n_invalid`` rows with a non-invertible covariance (culled by
+    the projection), the next ``n_huge`` with a bbox over the whole grid."""
     rng = np.random.default_rng(seed)
     xy = np.stack([rng.uniform(0, W, n), rng.uniform(0, H, n)], -1).astype(np.float32)
     xy[:crowd] = 12.0
+    if spread:
+        xy[:crowd] += rng.uniform(-spread, spread, (crowd, 2)).astype(np.float32)
     a, c = rng.uniform(2.0, 60.0, n), rng.uniform(2.0, 60.0, n)
     b = rng.uniform(-0.8, 0.8, n) * np.sqrt(a * c)
     cov = np.stack([a, b, c], -1).astype(np.float32)
+    if n_invalid:
+        cov[n - n_invalid:] = np.array([1.0, 2.0, 1.0], np.float32)
+    if n_huge:
+        big = max(4e4, 4.0 * max(H, W) ** 2)
+        cov[n - n_invalid - n_huge:n - n_invalid] = np.array([big, 0.0, big], np.float32)
     colors = rng.uniform(0, 1, (n, 3)).astype(np.float32)
     proj = project_gaussians_2d_covariance(torch.as_tensor(xy), torch.as_tensor(cov), H, W)
     return proj, torch.as_tensor(colors), torch.ones(n)
@@ -198,3 +224,131 @@ def test_tile_bin_matches_plain(card, case):
     assert binning_tiles.tile_bin.launches == before + 1
     torch.cuda.synchronize()
     assert torch.equal(ids.cpu(), ref_ids) and torch.equal(count.cpu(), ref_count), case
+
+
+ENUMERATIONS = {
+    "list kc 64": (raster_list.KC, raster_list.member_lists),
+    "list_t kc 128": (raster_list.KC_T, raster_list.member_lists),
+    "dense": (raster_dense.DENSE_KC, raster_dense.dense_lists),
+    "sweep": (raster_dense.SWEEP_KC, raster_dense.sweep_lists),
+    "range": (raster_dense.SWEEP_KC, raster_dense.range_lists),
+}
+# 600 Gaussians over the tile at (0, 0) of a 64x96 grid, among 200 others:
+# more members than kernel B's shared list holds
+CROWDED = dict(n=800, H=64, W=96, seed=11, crowd=600, spread=3.5)
+
+
+def _forward_both(card, kw, kc, lists):
+    proj, colors, opacity = _scene(**kw)
+    H, W = kw["H"], kw["W"]
+    table, bbox, N, Np = raster_list._table_bbox(proj, colors, opacity, H, W, kc)
+    inputs = (table, bbox) + tuple(lists(table, bbox, N, Np, kc, H, W))
+    ref = raster_list.chunk_list_forward_plain(*inputs, kc, H, W)
+    on_card = [a.to(card) for a in inputs]
+    before = raster_list.chunk_list_forward.launches
+    out = raster_list.chunk_list_forward(*on_card, kc, H, W)
+    again = raster_list.chunk_list_forward(*on_card, kc, H, W)
+    assert raster_list.chunk_list_forward.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), "kernel B: two launches differ"
+    return inputs, out, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("enum", list(ENUMERATIONS))
+def test_chunk_list_forward_crowded_tile(card, enum):
+    kc, lists = ENUMERATIONS[enum]
+    inputs, out, ref = _forward_both(card, CROWDED, kc, lists)
+    table, bbox = inputs[:2]
+    members = raster_list._bbox_members(table, bbox, 6, 24).sum(dim=1)
+    assert int(members.max()) >= 600, int(members.max())
+    _close(out, ref, f"kernel B crowded tile, {enum}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kc", [64, 128])
+def test_chunk_list_forward_residual_interval_only(card, kc):
+    """lmax 1: every member chunk but a tile's first is reached only through
+    the residual interval [lo2, hi2)."""
+    lists = functools.partial(raster_list.member_lists, lmax=1)
+    inputs, out, ref = _forward_both(card, CROWDED, kc, lists)
+    _, _, lst, cnt, lo2, hi2 = inputs
+    assert int((hi2 - lo2).max()) >= 3 and int(cnt.max()) == 1
+    _close(out, ref, f"kernel B residual interval kc {kc}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("enum", list(ENUMERATIONS))
+def test_chunk_list_forward_every_enumeration(card, enum):
+    kc, lists = ENUMERATIONS[enum]
+    kw = dict(SCENES["kodak-size"])
+    kw.pop("cap")
+    _, out, ref = _forward_both(card, kw, kc, lists)
+    _close(out, ref, f"kernel B kodak-size, {enum}")
+
+
+# kernel D: invalid rows and a Gaussian over the whole grid on the ragged
+# 45x77 grid; two Gaussians over the whole 768x512 grid (stage 2's lanes take
+# 48 of the 1536 tiles each); a crowded tile over cap 8 (bbox tiles lack
+# their slot); 300 live slots in one tile at cap 512 (stage 1 spreads the
+# tile over ten blocks of 32 slots)
+D_CASES = {
+    "ragged, invalid rows, whole-grid bbox": dict(n=150, H=45, W=77, seed=12, cap=64,
+                                                  n_invalid=9, n_huge=2),
+    "kodak-size, whole-grid bbox": dict(n=5000, H=512, W=768, seed=15, cap=256, n_huge=2),
+    "crowded over cap 8": dict(n=200, H=48, W=80, seed=13, cap=8, crowd=60, spread=3.5,
+                               n_huge=1),
+    "300 slots in a tile, cap 512": dict(n=400, H=48, W=80, seed=14, cap=512, crowd=300,
+                                         spread=3.5),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(D_CASES))
+def test_tile_table_backward_hard_cases(card, case):
+    kw = dict(D_CASES[case])
+    cap = kw.pop("cap")
+    proj, colors, opacity = _scene(**kw)
+    H, W = kw["H"], kw["W"]
+    tb = (-(-W // 16), -(-H // 16))
+    bins = bin_gaussians(proj, H, W, cap=cap)
+    N = proj.xys.shape[0]
+    raw, counts = raster_binned._prepare(proj.xys, proj.conics, colors, opacity,
+                                         bins.ids, bins.mask)
+    ids = raster_binned._slot_ids(bins.ids, bins.mask, N).to(torch.int32)
+    bbox = raster_binned.tile_bbox_table(proj.xys, proj.radii, tb)
+    area = ((bbox[:, 1].clamp(max=tb[0]) - bbox[:, 0].clamp(min=0)).clamp(min=0)
+            * (bbox[:, 3].clamp(max=tb[1]) - bbox[:, 2].clamp(min=0)).clamp(min=0))
+    if kw.get("n_huge"):
+        assert int(area.max()) == tb[0] * tb[1], "no bbox covers the whole grid"
+    if kw.get("n_invalid"):
+        assert int((~proj.valid).sum()) >= kw["n_invalid"]
+        # a live slot whose row is invalid contributes nothing
+        raw[0, 0, 15] = 0.0
+    if cap == 8:
+        full = bin_gaussians(proj, H, W, cap=1024)
+        assert int(full.count.sum()) > int(bins.count.sum()), "no member was capped out"
+    if cap == 512:
+        assert int(counts.max()) >= 300 and raw.shape[1] == 512
+    v_img = torch.as_tensor(np.random.default_rng(kw["seed"]).normal(size=(H, W, 3))
+                            .astype(np.float32))
+    args = [a.contiguous() for a in (raw, counts, ids, bbox, v_img)]
+    ref = raster_binned.tile_table_backward_plain(*args)
+    on_card = [a.to(card) for a in args]
+    out = raster_binned.tile_table_backward(*on_card)
+    again = raster_binned.tile_table_backward(*on_card)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), f"kernel D {case}: two launches differ"
+    _payload_close(out, ref, f"kernel D {case}")
+
+
+@pytest.mark.cuda
+def test_tile_table_backward_clamps_counts(card):
+    """counts past K read K slots, negative counts none, as the plain version."""
+    args = _binned_inputs("odd-grid", "cpu")
+    K = args[0].shape[1]
+    args[1] = args[1].clone()
+    args[1][0], args[1][1] = K + 7, -3
+    ref = raster_binned.tile_table_backward_plain(*args)
+    out = raster_binned.tile_table_backward(*(a.to(card) for a in args))
+    _payload_close(out, ref, "kernel D clamped counts")
