@@ -22,9 +22,10 @@ hand-written CUDA kernels against their plain PyTorch versions. Phases:
    and on the fitted state; both on a synthetic 500x760 grid. Tolerance: ``|kernel - plain| <= 2e-5 +
    1e-5 |plain|`` at every pixel but at most 0.01% of them, where the two
    evaluations of the expanded quadratic may round across the sigma >= 0 or
-   alpha >= 1/255 gate. Kernel C (``chunk_backward``) on a fitted state in
-   Morton order at kc 128 and kc 64, on kodim01 in stream order, through
-   ``dense_backward``, and on the synthetic grid; kernel D
+   alpha >= 1/255 gate. Kernel C (``chunk_backward``: a block's warps share
+   its rows' (row, bbox tile) pairs and sum in Gaussian-centred offsets) on a
+   fitted state in Morton order at kc 128 and kc 64, on kodim01 in stream
+   order, through ``dense_backward``, and on the synthetic grid; kernel D
    (``tile_table_backward``) on kodim01's binned table, on the synthetic grid
    (ragged edge tiles), on a synthetic tile forced over its cap (kernel B on
    it too: more members than its shared list holds), and (after
@@ -32,10 +33,12 @@ hand-written CUDA kernels against their plain PyTorch versions. Phases:
    with the L2 cotangent ``2 (render - target) / (3 H W)`` and a seeded normal
    one. Tolerance, per payload column: ``max |kernel - plain| <= 1e-4 max
    |plain|`` (the gate is bit-equal, the sums run in another order); two
-   launches give the same bits. Kernel E (``tile_bin``) against the
-   ``'top_k'`` selection on kodim01's fitted state, the synthetic tile over
-   its cap and (after phase 4) the fit and 2K states: ids, mask and count
-   equal exactly, and equal to ``'hier'`` wherever its ``super_overflow`` is 0;
+   launches give the same bits. Kernel E (``tile_bin``: a block filters the
+   bbox table down to the ids over a window of one tile row, and each tile's
+   warp picks its members from that list) against the ``'top_k'``
+   selection on kodim01's fitted state, the synthetic tile over its cap and
+   (after phase 4) the fit and 2K states: ids, mask and count equal exactly,
+   and equal to ``'hier'`` wherever its ``super_overflow`` is 0;
 4. main paths, each with every launch count set to 0 just before it and read
    just after. Decode: each of the 57 committed streams
    (``results/bitstreams*/``: 48 lsq Kodak streams of rounds 3 and 4, 6 with
@@ -82,15 +85,25 @@ hand-written CUDA kernels against their plain PyTorch versions. Phases:
    each kernel's own device time per call, the same 50 calls queued behind
    a spin kernel so that the card never waits for the host (the JSON
    ``device_ms``: back to back, a kernel that runs faster than its Python
-   wrapper is timed by the host); kernel B also at the timed fit state and
-   per enumeration, with the table rows each visits; kernel D also at
-   kodim01's binned table and the 2K state, with its live slots, largest
-   tile bbox and each stage's device time under ``torch.profiler``; and the
-   device time of a full decode and of each train step under the profiler.
+   wrapper is timed by the host); each kernel at every state its main-path
+   launches run at: A at kodim01's bin-once table and the binned tables of
+   the fit and 2K states, B at kodim01 (each enumeration) and the timed fit
+   state, with the table rows each visits, C at the fit state and kodim01's
+   stream-order table, D at the fit state, kodim01's binned table and the 2K
+   state, with its live slots, largest tile bbox and each stage's device time
+   under ``torch.profiler``, E at the fit, kodim01 and 2K states; per kernel
+   and state the launches of phase 4's paths (the odd-grid fit's taken at
+   the fit state, path (e)'s gradients at kodim01's), the bound, and
+   ``loss_ms`` = the sum over states of launches x (device_ms - bound_ms),
+   which ranks the kernels for redesign; and the device time of a full
+   decode and of each train step under the profiler.
    In some runs the profiler traces none of the kernels launched through the
    port's own libraries: the log then names them, and D's stages are not
    measured.
 
+Each kernel's row in the JSON line carries ``device_ms_by_state``,
+``ms_by_state``, ``launches_by_state``, ``bound_ms_by_state`` and
+``loss_ms`` beside its single-state ``ms``, ``device_ms`` and ``bound_ms``.
 The last three lines of standard output are the kernels' JSON line, the
 card's ``nvidia-smi`` name and power limit, and ``{"ok": true, ...}``. Any
 failed check exits nonzero before those lines. A fuller report is written to
@@ -136,8 +149,6 @@ FIT_POINTS, FIT_SEED = 2500, 3047
 AGREE_STEPS, AGREE_DB = 100, 0.05
 ODD_HW, ODD_FIT, ODD_RISE_DB = (496, 752), dict(iterations=200, prune_iter=100), 3.0
 K2_HW, K2_POINTS, K2_STEPS = (1344, 2040), 20_000, 100
-# kernel E: integer compares per (tile, Gaussian) bbox test
-OPS_BIN_TEST = 4
 
 report: dict = {"phases": {}}
 
@@ -365,20 +376,6 @@ def bbox_tiles(bbox: torch.Tensor, h: int, w: int) -> torch.Tensor:
     bw = (bbox[:, 1].clamp(max=tb_x) - bbox[:, 0].clamp(min=0)).clamp(min=0)
     bh = (bbox[:, 3].clamp(max=tb_y) - bbox[:, 2].clamp(min=0)).clamp(min=0)
     return bw * bh
-
-
-def scanned_ids(bbox: torch.Tensor, tb_x: int, tb_y: int, cap: int) -> int:
-    """Bbox tests kernel E's input needs: per tile every id, or up to the
-    cap-th member where a tile has that many."""
-    t = torch.arange(tb_x * tb_y, device=bbox.device)
-    tx, ty = (t % tb_x)[:, None], torch.div(t, tb_x, rounding_mode="floor")[:, None]
-    member = ((tx >= bbox[None, :, 0]) & (tx < bbox[None, :, 1]) &
-              (ty >= bbox[None, :, 2]) & (ty < bbox[None, :, 3]))
-    rank = member.to(torch.int32).cumsum(dim=1)
-    reached = rank >= cap
-    first = torch.where(reached.any(1), reached.to(torch.int8).argmax(1) + 1,
-                        torch.full_like(t, bbox.shape[0]))
-    return int(first.sum())
 
 
 def nvidia_smi_line() -> str:
@@ -683,7 +680,7 @@ def run() -> None:
     compare_e(f"synthetic over cap ({most_c} in a tile)", proj_c, Ho, Wo)
     st_gt = state_from_numpy(d_gt, device=dev)
     proj_gt = gi.project(st_gt.params, st_gt.active, st_gt.bound, cfg_gt)
-    compare_e("repr_states_plain/kodim01", proj_gt, cfg_gt.H, cfg_gt.W)
+    bbox_e01 = compare_e("repr_states_plain/kodim01", proj_gt, cfg_gt.H, cfg_gt.W)
 
     # ---- 4. main paths
     log("[4] main path: decode every committed stream, render every fitted state")
@@ -909,10 +906,15 @@ def run() -> None:
     check(launches_e["b"] == 4 * len(states), f"(e): kernel B launched {launches_e['b']} times")
     check(all(n == len(states) for n in by_enum.values()), f"(e): kernel B per enumeration {by_enum}")
 
+    by_enum_g = dict.fromkeys(("list_t", "dense", "sweep"), 0)   # kernel B, per enumeration
+
     def loss_grads(st_, cfg, backend):
+        n0 = kernel_b.launches
         params = gi.GaussianParams(*(p.detach().clone().requires_grad_(True) for p in st_.params))
         img = gi.render(st_._replace(params=params), dataclasses.replace(cfg, raster_backend=backend))
-        return torch.autograd.grad(torch.mean((img - gt) ** 2), params)
+        grads = torch.autograd.grad(torch.mean((img - gt) ** 2), params)
+        by_enum_g[backend] += kernel_b.launches - n0
+        return grads
 
     reset_launches()
     g_ref = loss_grads(st, cfg_s, "list_t")
@@ -947,7 +949,7 @@ def run() -> None:
         cot2k = l2_cotangent(gi.render(s2k, cfg2k), target2k)
     inp_d2k = compare_d("2K state", proj2k, gi.colors_of(s2k.params, cfg2k), h2, w2,
                         {"L2": cot2k, "normal": normal_cotangent(h2, w2, 9)}, bins2k)
-    compare_e("2K state", proj2k, h2, w2)
+    bbox_e2k = compare_e("2K state", proj2k, h2, w2)
 
     # the dense oracle (direct form, independent of the tile table) on kodim01
     img01, _ = decode_bitstream(kodim01, device=dev)
@@ -1009,6 +1011,10 @@ def run() -> None:
                                              kernel_c, plain_c, (table_c, bbox_c, cot_t)))
     times["kernel C, fit state kc 128"] = launch_ms(lambda: kernel_c(table_c, bbox_c, cot_t))
     times["plain C, fit state kc 128"] = launch_ms(lambda: plain_c(table_c, bbox_c, cot_t))
+    # and at kodim01's stream-order table (the gradients of path (e) run there)
+    table_c01, bbox_c01 = c_inputs(proj01_s, col01_s, H, W, 128)
+    times["kernel C, kodim01 stream order kc 128"] = launch_ms(
+        lambda: kernel_c(table_c01, bbox_c01, cot01))
     # the same gradient on the sweep's table (kc 64 padding: sweep_backward)
     table_c64, bbox_c64 = c_inputs(proj_t, col_t, cfg_fit.H, cfg_fit.W, raster_dense.SWEEP_KC)
     times["kernel C, fit state kc 64"] = launch_ms(lambda: kernel_c(table_c64, bbox_c64, cot_t))
@@ -1030,8 +1036,19 @@ def run() -> None:
     for tag, (inp_, cot_, _, _) in d_states.items():
         times[f"kernel D, {tag}"] = launch_ms(lambda inp_=inp_, cot_=cot_: kernel_d(*inp_, cot_))
     times["plain D, binned fit state"] = launch_ms(lambda: plain_d(*inp_d, cot_b))
+    # kernel A on the binned tables of the fit and 2K states (the training
+    # steps' launches), beside kodim01's bin-once table
+    a_states = {"kodim01": (prep_trim.raw, prep_trim.counts, H, W),
+                "fit": (inp_d[0], inp_d[1], cfg_fit.H, cfg_fit.W),
+                "2K": (inp_d2k[0], inp_d2k[1], h2, w2)}
+    for tag in ("fit", "2K"):
+        times[f"kernel A, {tag} state"] = launch_ms(lambda a=a_states[tag]: kernel_a(*a))
     tb_fit = tile_bounds_for(cfg_fit.H, cfg_fit.W)
+    e_states = {"fit": (bbox_e, *tb_fit), "kodim01": (bbox_e01, *tile_bounds_for(H, W)),
+                "2K": (bbox_e2k, *tile_bounds_for(h2, w2))}
     times["kernel E, binned fit state"] = launch_ms(lambda: kernel_e(bbox_e, *tb_fit, 256))
+    for tag in ("kodim01", "2K"):
+        times[f"kernel E, {tag} state"] = launch_ms(lambda e=e_states[tag]: kernel_e(*e, 256))
     times["plain E, binned fit state"] = launch_ms(lambda: plain_e(bbox_e, *tb_fit, 256))
     n_e = bbox_e.shape[0]
     t_e = torch.arange(tb_fit[0] * tb_fit[1], device=dev)
@@ -1058,8 +1075,16 @@ def run() -> None:
         "kernel B, fit state kc 128": device_ms_per_call(
             lambda: kernel_b(*inp_fit, 128, cfg_fit.H, cfg_fit.W)),
         "kernel C, fit state kc 128": device_ms_per_call(lambda: kernel_c(table_c, bbox_c, cot_t)),
+        "kernel C, kodim01 stream order kc 128": device_ms_per_call(
+            lambda: kernel_c(table_c01, bbox_c01, cot01)),
         "kernel E, binned fit state": device_ms_per_call(lambda: kernel_e(bbox_e, *tb_fit, 256)),
     }
+    for tag in ("fit", "2K"):
+        device_ms[f"kernel A, {tag} state"] = device_ms_per_call(
+            lambda a=a_states[tag]: kernel_a(*a))
+    for tag in ("kodim01", "2K"):
+        device_ms[f"kernel E, {tag} state"] = device_ms_per_call(
+            lambda e=e_states[tag]: kernel_e(*e, 256))
     for (kname, order), (inp_, kc) in enum_inputs.items():
         device_ms[f"kernel B, kodim01 {order}, {kname} kc {kc}"] = device_ms_per_call(
             lambda inp_=inp_, kc=kc: kernel_b(*inp_, kc, H, W))
@@ -1132,8 +1157,26 @@ def run() -> None:
             busy_ms=busy, frame_ms=frame, top=top, not_traced=missing)
 
     # bounds at the timed inputs: what this run's data needs
+    def a_bound(raw_, counts_, h_, w_):
+        """Kernel A: OPS_PER_PAIR at each live (slot, pixel) pair on the image;
+        bytes: the live table rows, counts and the image written."""
+        live_ = int(counts_.clamp(0, raw_.shape[1]).sum())
+        on_, _ = gate_slots(raw_, counts_, h_, w_)
+        return bound(on_ * OPS_PER_PAIR, live_ * 64 + counts_.numel() * 4 + h_ * w_ * 3 * 4)
+
+    def c_bound(table_, bbox_, h_, w_):
+        """Kernel C: the gate at each (member, pixel) pair on the image, the
+        rest where it passes; bytes: table, bbox, payload and image."""
+        on_, pass_ = gate_pairs(table_, bbox_, h_, w_)
+        return (bound(on_ * OPS_GATE_C + pass_ * OPS_PASS_C,
+                      (2 * table_.numel() + bbox_.numel()) * 4 + h_ * w_ * 3 * 4), on_, pass_)
+
+    def e_bound(bbox_, tbx, tby):
+        """Kernel E: the bytes of the bbox table read once and the ids and
+        counts written."""
+        return bound(0, bbox_.numel() * 4 + tbx * tby * (256 + 1) * 4)
+
     members_a = int(prep_trim.counts.sum())
-    bytes_a = members_a * 64 + prep_trim.counts.numel() * 4 + H * W * 3 * 4
     table, bbox, lst, cnt, lo2, hi2 = inp_l
     T = lst.shape[0]
     members_b = list_members(table, bbox, H, W)
@@ -1148,19 +1191,18 @@ def run() -> None:
     bytes_fit = ((inp_fit[0].numel() + inp_fit[1].numel() + inp_fit[2].numel() + 3 * T) * 4
                  + cfg_fit.H * cfg_fit.W * 3 * 4)
     bound_fit, by_fit = bound(members_fit * PIX * OPS_PER_PAIR, bytes_fit)
-    ms_fit, dev_fit = times["kernel B, fit state kc 128"], device_ms["kernel B, fit state kc 128"]
     log(f"  kernel B on the fit state (Morton order, kc 128): {members_fit} members, {rows_fit} "
-        f"table rows visited ({rows_fit / members_fit:.1f} per member), {ms_fit:.4f} ms back to "
-        f"back, {dev_fit:.4f} ms device time, bound {bound_fit:.5f} ms ({by_fit})")
-    report["kernel_b_fit_state"] = dict(members=members_fit, rows_visited=rows_fit, ms=ms_fit,
-                                        device_ms=dev_fit, bound_ms=bound_fit, bound_by=by_fit)
-    bound_a, by_a = bound(members_a * PIX * OPS_PER_PAIR, bytes_a)
+        f"table rows visited ({rows_fit / members_fit:.1f} per member)")
+    report["kernel_b_fit_state"] = dict(members=members_fit, rows_visited=rows_fit)
+    bound_a, by_a = a_bound(*a_states["kodim01"])
     bound_b, by_b = bound(members_b * PIX * OPS_PER_PAIR, bytes_b)
+    enum_bounds = {}
     for (kname, order), (inp_, kc) in enum_inputs.items():
         table_, bbox_, lst_, cnt_, lo2_, hi2_ = inp_
         rows = rows_visited(cnt_, lo2_, hi2_, kc)
         bytes_ = (table_.numel() + bbox_.numel() + lst_.numel() + 3 * T) * 4 + H * W * 3 * 4
         bound_, by_ = bound(members_b * PIX * OPS_PER_PAIR, bytes_)
+        enum_bounds[(kname, order)] = (bound_, by_)
         key = f"kernel B, kodim01 {order}, {kname} kc {kc}"
         ms, dev_ms = times[key], device_ms[key]
         log(f"  kernel B on kodim01, {order}, {kname} (kc {kc}): {rows} table rows visited "
@@ -1171,10 +1213,8 @@ def run() -> None:
     live = table_c[:, 15] > 0
     area = ((bbox_c[:, 1] - bbox_c[:, 0]) * (bbox_c[:, 3] - bbox_c[:, 2]))[live]
     members_c, largest_c = int(area.sum()), int(area.max())
-    on_image_c, passing_c = gate_pairs(table_c, bbox_c, cfg_fit.H, cfg_fit.W)
+    (bound_c, by_c), on_image_c, passing_c = c_bound(table_c, bbox_c, cfg_fit.H, cfg_fit.W)
     pass_frac_c = passing_c / on_image_c
-    bytes_c = (2 * table_c.numel() + bbox_c.numel()) * 4 + cfg_fit.H * cfg_fit.W * 3 * 4
-    bound_c, by_c = bound(on_image_c * OPS_GATE_C + passing_c * OPS_PASS_C, bytes_c)
     log(f"  kernel C on the fit state: {int(live.sum())} valid rows, {members_c} (row, tile) "
         f"members, largest bbox {largest_c} tiles; {on_image_c} (member, pixel) pairs on the "
         f"image, {passing_c} ({pass_frac_c:.4%}) pass the gate")
@@ -1185,6 +1225,7 @@ def run() -> None:
     # image, the rest where it passes; bytes: the live table rows and ids,
     # counts, bbox, cotangent, output. Its stages' device time from the
     # profiler above (slot_start_kernel, tile_payload_kernel, payload_gather_kernel).
+    d_bounds = {}
     for tag, (inp_, cot_, h_, w_) in d_states.items():
         raw_, counts_, _, bbox_ = inp_
         live_ = int(counts_.clamp(0, raw_.shape[1]).sum())
@@ -1196,29 +1237,88 @@ def run() -> None:
         stages = (" stage 0 (slot_start_kernel) {:.4f} ms, stage 1 (tile_payload_kernel) {:.4f} "
                   "ms, stage 2 (payload_gather_kernel) {:.4f} ms".format(*d_stages[tag])
                   if d_stages[tag] else " stages not measured: the profiler did not trace them")
-        ms_, dev_ = times[f"kernel D, {tag}"], device_ms[f"kernel D, {tag}"]
         log(f"  kernel D, {tag} ({h_}x{w_}, table {tuple(raw_.shape)}): {live_} live slots, "
             f"{int(counts_.max())} in the fullest tile, {bbox_.shape[0]} Gaussians, tile bbox mean "
             f"{float(tiles_.float().mean()):.1f} / largest {int(tiles_.max())} tiles; {pass_} of "
-            f"{on_} (slot, pixel) pairs pass the gate; {ms_:.4f} ms a call back to back, "
-            f"{dev_:.4f} ms device time, bound {bound_:.5f} ms ({by_});" + stages)
+            f"{on_} (slot, pixel) pairs pass the gate;" + stages)
         report.setdefault("kernel_d_states", {})[tag] = dict(
             live_slots=live_, fullest_tile=int(counts_.max()), gaussians=bbox_.shape[0],
             bbox_tiles_mean=float(tiles_.float().mean()), bbox_tiles_largest=int(tiles_.max()),
-            pairs_on_image=on_, pairs_passing=pass_, ms=ms_, device_ms=dev_, bound_ms=bound_,
-            bound_by=by_, stage_ms=d_stages[tag])
+            pairs_on_image=on_, pairs_passing=pass_, stage_ms=d_stages[tag])
+        d_bounds[tag] = (bound_, by_)
         if tag == "binned fit state":
             raw_d, bbox_d = raw_, bbox_
             members_d, on_image_d, passing_d, bound_d, by_d = live_, on_, pass_, bound_, by_
-    # kernel E: the bbox tests its input needs; bytes: the bbox table, ids, counts
-    tests_e = scanned_ids(bbox_e, *tb_fit, 256)
-    bytes_e = bbox_e.numel() * 4 + t_e.numel() * (256 + 1) * 4
-    bound_e, by_e = bound(tests_e * OPS_BIN_TEST, bytes_e)
-    log(f"  kernel E: {tests_e} bbox tests ({t_e.numel()} tiles x {n_e} rows)")
-    report["kernel_e_input"] = dict(tests=tests_e, tiles=t_e.numel(), rows=n_e)
-    dense_key = f"kernel B, kodim01 stream order, dense kc {raster_dense.DENSE_KC}"
+    bound_e, by_e = e_bound(*e_states["fit"])
     total = {key: sum(n[key] for n in path_launches.values()) for key in kernels}
     report["path_launches"] = path_launches
+
+    # rule 2's ranking: each kernel's launches on the main paths taken at the
+    # state they run at (the odd-grid fit's at the fit state, which it is cut
+    # from, and the gradients of path (e) at kodim01's), its device time and
+    # bound there, and loss_ms = sum over states of launches x (device_ms -
+    # bound_ms)
+    state_of_path = {"decode and render": "kodim01", "fit": "fit", "binned fit": "fit",
+                     "odd-grid fit": "fit", "2K fit": "2K",
+                     "render dense / sweep gradients": "kodim01"}
+    state_of_path.update({f"{AGREE_STEPS} steps {b}": "fit" for b in ("auto", "xla", "pallas")})
+    enum_state = {"list_t": "kodim01", "dense": "kodim01 dense", "sweep": "kodim01 sweep",
+                  "range": "kodim01 range"}
+    launches_by_state = {key: {} for key in kernels}
+    for path, n in path_launches.items():
+        for key, count in n.items():
+            if key == "b" and path in ("render_fast dense / sweep / range",
+                                       "render dense / sweep gradients"):
+                split = by_enum if path.startswith("render_fast") else by_enum_g
+                check(sum(split.values()) == count, f"{path}: kernel B launches {split} vs {count}")
+                parts = [(enum_state[e], c) for e, c in split.items()]
+            else:
+                check(count == 0 or path in state_of_path, f"{path}: no state for kernel {key}")
+                parts = [(state_of_path.get(path), count)]
+            for tag, c in parts:
+                if c:
+                    launches_by_state[key][tag] = launches_by_state[key].get(tag, 0) + c
+    kc_d, kc_s = raster_dense.DENSE_KC, raster_dense.SWEEP_KC
+    timed_states = {
+        "a": {"kodim01": ("kernel A, kodim01 trimmed", (bound_a, by_a)),
+              "fit": ("kernel A, fit state", a_bound(*a_states["fit"])),
+              "2K": ("kernel A, 2K state", a_bound(*a_states["2K"]))},
+        "b": {"kodim01": ("kernel B, kodim01 kc 128", (bound_b, by_b)),
+              "fit": ("kernel B, fit state kc 128", (bound_fit, by_fit)),
+              **{enum_state[k]: (f"kernel B, kodim01 stream order, {k} kc {kc_}",
+                                 enum_bounds[(k, "stream order")])
+                 for k, kc_ in (("dense", kc_d), ("sweep", kc_s), ("range", kc_s))}},
+        "c": {"fit": ("kernel C, fit state kc 128", (bound_c, by_c)),
+              "kodim01": ("kernel C, kodim01 stream order kc 128",
+                          c_bound(table_c01, bbox_c01, H, W)[0])},
+        "d": {"fit": ("kernel D, binned fit state", d_bounds["binned fit state"]),
+              "kodim01": ("kernel D, kodim01 binned table", d_bounds["kodim01 binned table"]),
+              "2K": ("kernel D, 2K state", d_bounds["2K state"])},
+        "e": {tag: (f"kernel E, {'binned fit' if tag == 'fit' else tag} state",
+                    e_bound(*e_states[tag])) for tag in ("fit", "kodim01", "2K")},
+    }
+    by_state, loss_ms = {}, {}
+    for key, rows_ in timed_states.items():
+        missing = set(launches_by_state[key]) - set(rows_)
+        check(not missing, f"kernel {key.upper()}: launches at untimed states {missing}")
+        by_state[key] = {tag: dict(ms=times[tkey], device_ms=device_ms[tkey], bound_ms=b_ms,
+                                   bound_by=b_by, launches=launches_by_state[key].get(tag, 0))
+                         for tag, (tkey, (b_ms, b_by)) in rows_.items()}
+        loss_ms[key] = sum(r["launches"] * (r["device_ms"] - r["bound_ms"])
+                           for r in by_state[key].values())
+        log(f"  kernel {key.upper()} by state: " + "; ".join(
+            f"{tag} {r['device_ms']:.4f} ms device ({r['ms']:.4f} back to back), bound "
+            f"{r['bound_ms']:.5f} ({r['bound_by']}), {r['launches']} launches"
+            for tag, r in by_state[key].items()) + f"; loss {loss_ms[key]:.2f} ms")
+    report["by_state"], report["loss_ms"] = by_state, loss_ms
+
+    def state_keys(key):
+        rows_ = by_state[key]
+        return dict(device_ms_by_state={t: r["device_ms"] for t, r in rows_.items()},
+                    ms_by_state={t: r["ms"] for t, r in rows_.items()},
+                    launches_by_state={t: r["launches"] for t, r in rows_.items()},
+                    bound_ms_by_state={t: r["bound_ms"] for t, r in rows_.items()},
+                    loss_ms=loss_ms[key])
     kernel_rows = [
         dict(name="tile_table_forward", route="cuda",
              source="gaussianimage_plus_tpu_torch/csrc/tile_table_forward.cu",
@@ -1244,9 +1344,7 @@ def run() -> None:
              plain_ms=times["plain B, kodim01 kc 128"], bound_ms=bound_b, bound_by=by_b,
              library_ms=None,
              shape=f"kodim01 table {tuple(table.shape)}, kc 128, lmax {lst.shape[1]}, "
-                   f"{members_b} members",
-             ms_fit_state=ms_fit, device_ms_fit_state=dev_fit,
-             ms_dense=times[dense_key], device_ms_dense=device_ms[dense_key]),
+                   f"{members_b} members"),
         dict(name="chunk_backward", route="cuda",
              source="gaussianimage_plus_tpu_torch/csrc/chunk_backward.cu",
              replaces="gaussianimage_plus_tpu/kernels/raster_list_pallas.py:701 "
@@ -1273,9 +1371,7 @@ def run() -> None:
              bound_ms=bound_d, bound_by=by_d, library_ms=None,
              shape=f"binned fit state after growth, table {tuple(raw_d.shape)}, {members_d} live "
                    f"slots, {bbox_d.shape[0]} Gaussians, {passing_d} of {on_image_d} (slot, "
-                   f"pixel) pairs pass the gate",
-             ms_by_state={tag: times[f"kernel D, {tag}"] for tag in d_states},
-             device_ms_by_state={tag: device_ms[f"kernel D, {tag}"] for tag in d_states}),
+                   f"pixel) pairs pass the gate"),
         dict(name="tile_bin", route="cuda",
              source="gaussianimage_plus_tpu_torch/csrc/tile_bin.cu",
              replaces="gaussianimage_plus_tpu/kernels/binning_pallas.py:92 "
@@ -1285,9 +1381,10 @@ def run() -> None:
              plain_ms=times["plain E, binned fit state"],
              bound_ms=bound_e, bound_by=by_e,
              library_ms=times["torch.topk(key, 256), binned fit state"],
-             shape=f"binned fit state after growth, {t_e.numel()} tiles x {n_e} rows, cap 256, "
-                   f"{tests_e} bbox tests"),
+             shape=f"binned fit state after growth, {t_e.numel()} tiles x {n_e} rows, cap 256"),
     ]
+    for row, key in zip(kernel_rows, "abcde"):
+        row.update(state_keys(key))
     report["kernels"] = kernel_rows
     write_report()
     log(json.dumps({"kernels": kernel_rows}))

@@ -1,7 +1,7 @@
 """Tile binning: fixed-capacity per-tile Gaussian lists, and Morton order.
 
 Port of ``gaussianimage_plus_tpu/core/binning.py`` — ``bin_gaussians`` with
-the exact ``'top_k'`` and ``'scatter'`` selections (``:91-119``,
+the exact ``'top_k'``, ``'scatter'`` and ``'rank'`` selections (``:91-119``,
 ``:245-315``), the two-level ``'hier'`` method (``_bin_hier``, ``:122-172``,
 plain tensor code in both packages) and ``morton_perm`` (``:318-343``).
 Each tile keeps its first ``cap`` members in Gaussian-index order (the
@@ -50,7 +50,8 @@ def _membership(proj: Projected, tile_bounds: Tuple[int, int],
 def select_members(member: torch.Tensor, cap: int, method: str = "top_k") -> TileBins:
     """First ``cap`` members of each row of a [T, N] bool matrix, in index
     order. ``'top_k'`` selects by keys ``N - index``; ``'scatter'`` writes
-    each member to its rank slot. Both give the same result."""
+    each member to its rank slot; ``'rank'`` binary-searches each slot's
+    member in the membership cumsum. All three give the same result."""
     T, N = member.shape
     dev = member.device
     count = torch.clamp(member.sum(dim=1, dtype=torch.int32), max=cap)
@@ -67,6 +68,25 @@ def select_members(member: torch.Tensor, cap: int, method: str = "top_k") -> Til
             topv = torch.nn.functional.pad(topv, (0, cap - topv.shape[1]))
         mask = topv > 0
         ids = torch.where(mask, N - topv, torch.zeros_like(topv))
+    elif method == "rank":
+        # the (s+1)-th member of a row is the first index where the inclusive
+        # membership cumsum reaches s+1: a batched binary search over the
+        # nondecreasing rank rows, as in the JAX function
+        rank = torch.cumsum(member.to(torch.int32), dim=1, dtype=torch.int32)
+        k_eff = min(cap, N)
+        targets = torch.arange(1, k_eff + 1, dtype=torch.int32, device=dev)[None, :]
+        lo = torch.zeros((T, k_eff), dtype=torch.int64, device=dev)
+        hi = torch.full((T, k_eff), N, dtype=torch.int64, device=dev)
+        for _ in range(max(N, 2).bit_length()):
+            mid = (lo + hi) >> 1
+            go_right = torch.gather(rank, 1, torch.clamp(mid, max=N - 1)) < targets
+            lo = torch.where(go_right, mid + 1, lo)
+            hi = torch.where(go_right, hi, mid)
+        mask = targets <= count[:, None]
+        ids = torch.where(mask, torch.clamp(lo, max=N - 1), torch.zeros_like(lo))
+        if k_eff < cap:
+            ids = torch.nn.functional.pad(ids, (0, cap - k_eff))
+            mask = torch.nn.functional.pad(mask, (0, cap - k_eff))
     elif method == "scatter":
         rank = torch.cumsum(member.to(torch.int32), dim=1, dtype=torch.int32) - 1
         slot = torch.where(member & (rank < cap), rank, torch.full_like(rank, cap))
@@ -98,13 +118,14 @@ def bin_gaussians(proj: Projected, H: int, W: int, cap: int = 256,
                   block_h: int = BLOCK_H, block_w: int = BLOCK_W,
                   method: str = "top_k", super_size: int = 8,
                   super_cap: int = 0) -> TileBins:
-    """Per-tile member lists. ``method``: ``'top_k'`` | ``'scatter'`` (exact,
-    over the full [T, N] membership), ``'hier'`` (two levels, for large tile
-    grids: super-tiles of ``super_size`` x ``super_size`` tiles keep at most
-    ``super_cap`` candidates, 0 = ``max(4 cap, 512)``; equal to the flat
-    result whenever no super-tile overflows), ``'pallas'`` (kernel E, the
-    ``'top_k'`` result) or ``'auto'``: ``'hier'`` past 32M membership
-    entries, else ``'top_k'`` (the JAX rule)."""
+    """Per-tile member lists. ``method``: ``'top_k'`` | ``'scatter'`` |
+    ``'rank'`` (exact, over the full [T, N] membership), ``'hier'`` (two
+    levels, for large tile grids: super-tiles of ``super_size`` x
+    ``super_size`` tiles keep at most ``super_cap`` candidates, 0 =
+    ``max(4 cap, 512)``; equal to the flat result whenever no super-tile
+    overflows), ``'pallas'`` (kernel E, the ``'top_k'`` result) or
+    ``'auto'``: ``'hier'`` past 32M membership entries, else ``'top_k'``
+    (the JAX rule)."""
     tb = tile_bounds_for(H, W, block_h, block_w)
     if method == "auto":
         method = "hier" if tb[0] * tb[1] * proj.xys.shape[0] > 32_000_000 else "top_k"

@@ -66,6 +66,23 @@ def tile_bounds_for(H: int, W: int, block_h: int = BLOCK_H,
     return (-(-W // block_w), -(-H // block_h))
 
 
+# Deviation, on purpose: the JAX package renders any tile size on every
+# backend. The port's kernels (A-E) are written for the reference's 16x16
+# tiles (gsplat config.h, BLOCK_X = BLOCK_Y = 16), so every path that would
+# launch one refuses other sizes here and names the plain path, which renders
+# and differentiates any block_h x block_w on either device: ``render``,
+# ``prepare_render``/``render_prepared`` and the trainer's step with
+# ``raster_backend='xla'`` (or ``'auto'`` on the CPU).
+def check_kernel_tiles(block_h: int, block_w: int, what: str) -> None:
+    """Raise ``NotImplementedError`` for tiles other than 16x16: ``what``
+    would run a kernel."""
+    if (block_h, block_w) != (BLOCK_H, BLOCK_W):
+        raise NotImplementedError(
+            f"{what} runs the port's kernels, which render 16x16 tiles only; "
+            f"{block_h}x{block_w} tiles render through raster_backend='xla' "
+            f"with a bin_method other than 'pallas'")
+
+
 def slv_bound(H: int, W: int, num_points) -> torch.Tensor:
     """Scalar SLV low-pass variance floor ``min(H*W / (9*pi*N), 300)``."""
     n = torch.as_tensor(num_points, dtype=torch.float32)

@@ -14,35 +14,48 @@
 // (backward.cu:1297-1320):
 //   v_alpha = rgb . v_out            v_rgb  += alpha * v_out
 //   v_sigma = -(opac * vis) * v_alpha   (through the saturated min)
-//   v_opac += vis * v_alpha          M[f]   += v_sigma * phi_f(p)
-// with phi = [px^2, py^2, px*py, px, py, 1] in tile-local coordinates, and
-// turns the six moments M into v_conic (half off-diagonal) and v_xy with
-// that tile's lmx, lmy (the JAX body's per-tile moment form). Output: the
+//   v_opac += vis * v_alpha
+//   v_conic = 0.5 * sum v_sigma * [dx^2, dx dy, dy^2]   (half off-diagonal)
+//   v_xy    = -[c1 c2; c2 c3] . sum v_sigma * [dx, dy]
+// with (dx, dy) the pixel's offset from the Gaussian's centre. Output: the
 // payload [Np, 16] = [v_xy(2), v_conic(3), v_rgb(3), v_opac, 0 x 7].
 //
-// Design: one warp per row. The warp walks the row's bbox tiles in
-// row-major order; its lanes stride the tile's 256 pixels (8 each), read
-// the cotangent image through L1/L2 (4.7 MB at 768x512, it fits in L2),
-// and a butterfly of shuffles sums the ten per-tile partials in a fixed
-// order. So no per-chunk tile-block list is needed (the TPU's lists and its
-// MTB fallback are a TPU layout and are not carried over), and no float
-// atomics are used: every sum runs in a fixed order, and two launches on the
-// same inputs give the same bits. A row with a big bbox makes its warp run
-// long; the card holds every warp of a Kodak-size table at once, so the
-// launch lasts as long as the largest bbox.
+// Design: a block of kWarps warps owns kRows consecutive rows. It numbers
+// their (row, bbox tile) pairs row by row (a prefix of the rows' bbox areas)
+// and gives each warp an equal contiguous share of them, so a row with a
+// large bbox is split over several warps and a launch lasts as long as the
+// busiest block's mean share, not as long as the largest bbox. Within a
+// pair the lanes stride the tile's 256 pixels (8 each) and read the
+// cotangent image through L1/L2 (4.7 MB at 768x512: it fits in L2). Each
+// lane keeps nine sums over all the pairs of a row that its warp holds, in
+// the Gaussian-centred offsets (dx, dy), so the moments need no per-tile
+// conversion and one butterfly of shuffles per (warp, row) reduces them,
+// where the earlier design ran ten per tile. The warps' partial sums meet in
+// shared memory and are added in warp order, so no float atomics are used:
+// every sum runs in a fixed order, and two launches on the same inputs give
+// the same bits. A lane issues its pixels' cotangent loads for a tile
+// before any gate, whatever sigma is, so that their latency hides behind
+// the gate; the exp and the sums run only where 0 <= sigma <= smax for some
+// lane, with smax = log(255 opac) + 1e-3: past it expf (2 ulp) and the
+// product cannot reach 1/255, so the skip drops no pair that passes the
+// gate. The TPU's per-chunk tile-block lists and its MTB
+// fallback are a TPU layout and are not carried over.
 //
 // Bound on this card: operations — the gate (5 FMAs, an exp, a product and
 // a min: 13) at every (member, pixel) pair on the image, and 26 more float32
-// operations at each pair that passes it; bytes
-// are the table, bbox and payload (<1 MB) and the image (read once from
-// memory). No tensor cores: TF32 would flip the sigma >= 0 gate.
+// operations at each pair that passes it; bytes are the table, bbox and
+// payload (<1 MB) and the image (read once from memory). No tensor cores:
+// TF32 would flip the sigma >= 0 gate.
 //
 // Arithmetic contract with the plain PyTorch version (kernels/raster_list.py
 // chunk_backward_plain, core/render_tiled.py tile_payload): -fmad=false, and
-// w and sigma are kernel B's expressions and explicit fmaf chain, so a pair
-// passes the gate here exactly when it contributed to the forward. The
-// kernel allocates nothing, runs on the caller's stream and does not
-// synchronise; the C entry point returns cudaGetLastError().
+// w and sigma are kernel B's expressions and explicit fmaf chain in
+// tile-local coordinates, so a pair passes the gate here exactly when it
+// contributed to the forward; the sums run in another order and form (the
+// plain version converts tile-local moments per tile), within 1e-4 of each
+// payload column's largest entry. The kernel allocates nothing, runs on the
+// caller's stream and does not synchronise; the C entry point returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -51,9 +64,12 @@ namespace {
 constexpr int kBlock = 16;
 constexpr int kPix = kBlock * kBlock;
 constexpr int kCols = 16;
+constexpr int kSums = 9;
 constexpr int kWarp = 32;
-constexpr int kWarpsPerBlock = 4;
+constexpr int kWarps = 4;                   // warps per block
+constexpr int kRows = 8;                    // table rows per block
 constexpr int kPixPerLane = kPix / kWarp;   // 8
+static_assert(kRows <= kWarp, "one lane per row sets up the pair numbering");
 
 // Butterfly sum: every lane ends with the same value, in a fixed order.
 __device__ __forceinline__ float warp_sum(float v) {
@@ -62,109 +78,184 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+// A row's bbox tiles on the grid: the forward's member test
+// (txf >= xmin && txf < xmax) on integer tiles; an invalid row has none.
+struct Span {
+  int x0, y0, w, h;
+};
+
+__device__ __forceinline__ Span row_span(const float* table, const float* bbox, int g,
+                                         int tb_x, int tb_y) {
+  const float4 bb = reinterpret_cast<const float4*>(bbox)[g];  // xmin xmax ymin ymax
+  Span s;
+  s.x0 = max(0, static_cast<int>(ceilf(bb.x)));
+  s.y0 = max(0, static_cast<int>(ceilf(bb.z)));
+  s.w = max(0, min(tb_x, static_cast<int>(ceilf(bb.y))) - s.x0);
+  s.h = max(0, min(tb_y, static_cast<int>(ceilf(bb.w))) - s.y0);
+  if (!(table[static_cast<size_t>(g) * kCols + kCols - 1] > 0.f)) s.w = s.h = 0;
+  return s;
+}
+
+__global__ void __launch_bounds__(kWarp * kWarps, 6)
 chunk_backward_kernel(const float* __restrict__ table,
                       const float* __restrict__ bbox,
                       const float* __restrict__ v_img,
                       float* __restrict__ out,
                       int Np, int tb_x, int tb_y, int H, int W) {
+  __shared__ float s_part[kRows][kWarps][kSums]; // each warp's sums per row
   const int lane = threadIdx.x % kWarp;
-  const int g = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (g >= Np) return;                       // the whole warp leaves together
-  const float4* row = reinterpret_cast<const float4*>(table + static_cast<size_t>(g) * kCols);
-  const float4 a = row[0];   // c1 c2 c3 mx
-  const float4 b = row[1];   // my r g b
-  const float4 o = row[2];   // opac ...
-  const float4 d = row[3];   // ... valid
-  const float4 bb = reinterpret_cast<const float4*>(bbox)[g];  // xmin xmax ymin ymax
+  const int warp = threadIdx.x / kWarp;
+  const int r0 = blockIdx.x * kRows;
+
+  // every warp numbers the block's pairs itself (one lane per row), so no
+  // barrier stands before the work
+  int start = 0;
+  {
+    int area = 0;
+    if (lane < kRows && r0 + lane < Np) {
+      const Span s = row_span(table, bbox, r0 + lane, tb_x, tb_y);
+      area = s.w * s.h;
+    }
+    start = area;
+#pragma unroll
+    for (int off = 1; off < kWarp; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, start, off);
+      if (lane >= off) start += v;
+    }
+    start -= area;                           // exclusive: the first pair of row `lane`
+  }
+  const int total = __shfl_sync(0xffffffffu, start, kRows);
+  const int j0 = warp * total / kWarps;
+  const int j1 = (warp + 1) * total / kWarps;
   const float thresh = 1.0f / 255.0f;
-  const float c1 = a.x, c2 = a.y, c3 = a.z, opac = o.x;
-  const float w0 = 0.5f * c1, w1 = 0.5f * c3, w2 = c2;
-  // the forward's member test (txf >= xmin && txf < xmax) on integer tiles
-  const int x0 = max(0, static_cast<int>(ceilf(bb.x)));
-  const int x1 = min(tb_x, static_cast<int>(ceilf(bb.y)));
-  const int y0 = max(0, static_cast<int>(ceilf(bb.z)));
-  const int y1 = min(tb_y, static_cast<int>(ceilf(bb.w)));
-  const bool valid = d.w > 0.f;
   // this lane's pixels: p = lane + 32 k -> px = lane % 16, py = lane / 16 + 2 k
   const int pxi = lane % kBlock;
   const float px = static_cast<float>(pxi);
   const float px2 = px * px;
 
-  float acc[9];
-#pragma unroll
-  for (int i = 0; i < 9; ++i) acc[i] = 0.f;
-
-  for (int ty = y0; valid && ty < y1; ++ty) {
-    for (int tx = x0; tx < x1; ++tx) {
+  // the warp writes its sums for every row: zeros where it holds no pair
+  for (int rr = 0; rr < kRows; ++rr) {
+    const int first = __shfl_sync(0xffffffffu, start, rr);
+    const int last = __shfl_sync(0xffffffffu, start, rr + 1);
+    if (lane < kSums && max(first, j0) >= min(last, j1)) s_part[rr][warp][lane] = 0.f;
+  }
+  int r = 0;                                 // the block's row of pair j (warp-uniform)
+  while (r < kRows - 1 && __shfl_sync(0xffffffffu, start, r + 1) <= j0) ++r;
+  int j = j0;
+  while (j < j1) {
+    // the warp's pairs of row r: [j, jr)
+    const int g = r0 + r;
+    const int first = __shfl_sync(0xffffffffu, start, r);
+    const int jr = min(j1, __shfl_sync(0xffffffffu, start, r + 1));
+    if (jr <= j) {                           // a row without pairs
+      ++r;
+      continue;
+    }
+    const Span sp = row_span(table, bbox, g, tb_x, tb_y);
+    const float4* row = reinterpret_cast<const float4*>(table + static_cast<size_t>(g) * kCols);
+    const float4 a = row[0];   // c1 c2 c3 mx
+    const float4 b = row[1];   // my r g b
+    const float opac = row[2].x;
+    const float c1 = a.x, c2 = a.y, c3 = a.z;
+    const float w0 = 0.5f * c1, w1 = 0.5f * c3, w2 = c2;
+    const float smax = static_cast<float>(log(255.0 * static_cast<double>(opac))) + 1e-3f;
+    float s_r = 0.f, s_g = 0.f, s_b = 0.f, s_o = 0.f;
+    float m_xx = 0.f, m_xy = 0.f, m_yy = 0.f, m_x = 0.f, m_y = 0.f;
+    const int i0 = j - first;
+    int tx = sp.x0 + i0 % sp.w, ty = sp.y0 + i0 / sp.w;
+    for (; j < jr; ++j) {
       const float lmx = a.w - static_cast<float>(tx) * static_cast<float>(kBlock);
       const float lmy = b.x - static_cast<float>(ty) * static_cast<float>(kBlock);
       const float w3 = -(c1 * lmx + c2 * lmy);
       const float w4 = -(c2 * lmx + c3 * lmy);
       const float w5 = 0.5f * c1 * lmx * lmx + 0.5f * c3 * lmy * lmy + c2 * lmx * lmy;
+      const float dx = px - lmx;
       const int x = tx * kBlock + pxi;
-      float s_r = 0.f, s_g = 0.f, s_b = 0.f, s_o = 0.f;
-      float m_xx = 0.f, m_yy = 0.f, m_xy = 0.f, m_x = 0.f, m_y = 0.f, m_1 = 0.f;
+      // the tile's cotangent loads and sigmas first, all independent; zero
+      // cotangent off the image, so a pixel there adds nothing
+      const int y0 = ty * kBlock + lane / kBlock;       // this lane's first row
+      const int rows = x < W ? min(kPixPerLane, (H - y0 + 1) / 2) : 0;
+      const float* vo = v_img + (static_cast<size_t>(y0) * W + x) * 3;
+      const size_t step = static_cast<size_t>(2 * W) * 3;
+      float v0[kPixPerLane], v1[kPixPerLane], v2[kPixPerLane], sg[kPixPerLane];
 #pragma unroll
       for (int k = 0; k < kPixPerLane; ++k) {
-        const int pyi = lane / kBlock + 2 * k;
-        const int y = ty * kBlock + pyi;
-        if (x >= W || y >= H) continue;      // zero cotangent off the image
-        const float* vo = v_img + (static_cast<size_t>(y) * W + x) * 3;
-        const float v0 = vo[0], v1 = vo[1], v2 = vo[2];
-        const float py = static_cast<float>(pyi);
+        v0[k] = v1[k] = v2[k] = 0.f;
+        if (k < rows) {
+          v0[k] = __ldg(vo + k * step);
+          v1[k] = __ldg(vo + k * step + 1);
+          v2[k] = __ldg(vo + k * step + 2);
+        }
+        const float py = static_cast<float>(lane / kBlock + 2 * k);
         const float pxy = px * py, py2 = py * py;
         float s = w5;
         s = fmaf(w4, py, s);
         s = fmaf(w3, px, s);
         s = fmaf(w2, pxy, s);
         s = fmaf(w1, py2, s);
-        s = fmaf(w0, px2, s);
+        sg[k] = fmaf(w0, px2, s);
+      }
+#pragma unroll
+      for (int k = 0; k < kPixPerLane; ++k) {
+        const float s = sg[k];
+        if (!(s >= 0.f && s <= smax)) continue;
         const float vis = expf(-s);
         const float alpha = fminf(1.0f, opac * vis);
-        if (!(s >= 0.f && alpha >= thresh)) continue;
-        const float v_alpha = b.y * v0 + b.z * v1 + b.w * v2;
-        s_r = fmaf(alpha, v0, s_r);
-        s_g = fmaf(alpha, v1, s_g);
-        s_b = fmaf(alpha, v2, s_b);
-        const float v_sigma = -(opac * vis) * v_alpha;
+        if (!(alpha >= thresh)) continue;
+        const float v_alpha = fmaf(b.w, v2[k], fmaf(b.z, v1[k], b.y * v0[k]));
+        s_r = fmaf(alpha, v0[k], s_r);
+        s_g = fmaf(alpha, v1[k], s_g);
+        s_b = fmaf(alpha, v2[k], s_b);
         s_o = fmaf(vis, v_alpha, s_o);
-        m_xx = fmaf(v_sigma, px2, m_xx);
-        m_yy = fmaf(v_sigma, py2, m_yy);
-        m_xy = fmaf(v_sigma, pxy, m_xy);
-        m_x = fmaf(v_sigma, px, m_x);
-        m_y = fmaf(v_sigma, py, m_y);
-        m_1 += v_sigma;
+        const float v_sigma = -(opac * vis) * v_alpha;
+        const float dy = static_cast<float>(lane / kBlock + 2 * k) - lmy;
+        const float vdx = v_sigma * dx, vdy = v_sigma * dy;
+        m_xx = fmaf(vdx, dx, m_xx);
+        m_xy = fmaf(vdx, dy, m_xy);
+        m_yy = fmaf(vdy, dy, m_yy);
+        m_x += vdx;
+        m_y += vdy;
       }
-      s_r = warp_sum(s_r);
-      s_g = warp_sum(s_g);
-      s_b = warp_sum(s_b);
-      s_o = warp_sum(s_o);
-      const float Sxx = warp_sum(m_xx), Syy = warp_sum(m_yy), Sxy = warp_sum(m_xy);
-      const float Sx = warp_sum(m_x), Sy = warp_sum(m_y), S1 = warp_sum(m_1);
-      const float v_con_x = 0.5f * (lmx * lmx * S1 - 2.0f * lmx * Sx + Sxx);
-      const float v_con_y = 0.5f * (lmx * lmy * S1 - lmx * Sy - lmy * Sx + Sxy);
-      const float v_con_z = 0.5f * (lmy * lmy * S1 - 2.0f * lmy * Sy + Syy);
-      const float mom_x = lmx * S1 - Sx;
-      const float mom_y = lmy * S1 - Sy;
-      acc[0] += c1 * mom_x + c2 * mom_y;
-      acc[1] += c2 * mom_x + c3 * mom_y;
-      acc[2] += v_con_x;
-      acc[3] += v_con_y;
-      acc[4] += v_con_z;
-      acc[5] += s_r;
-      acc[6] += s_g;
-      acc[7] += s_b;
-      acc[8] += s_o;
+      if (++tx == sp.x0 + sp.w) {
+        tx = sp.x0;
+        ++ty;
+      }
     }
+    s_r = warp_sum(s_r);
+    s_g = warp_sum(s_g);
+    s_b = warp_sum(s_b);
+    s_o = warp_sum(s_o);
+    m_xx = warp_sum(m_xx);
+    m_xy = warp_sum(m_xy);
+    m_yy = warp_sum(m_yy);
+    m_x = warp_sum(m_x);
+    m_y = warp_sum(m_y);
+    if (lane == 0) {
+      float* p = s_part[r][warp];
+      p[0] = -(c1 * m_x + c2 * m_y);
+      p[1] = -(c2 * m_x + c3 * m_y);
+      p[2] = 0.5f * m_xx;
+      p[3] = 0.5f * m_xy;
+      p[4] = 0.5f * m_yy;
+      p[5] = s_r;
+      p[6] = s_g;
+      p[7] = s_b;
+      p[8] = s_o;
+    }
+    ++r;
   }
+  __syncthreads();
 
-  if (lane == 0) {
-    float4* dst = reinterpret_cast<float4*>(out + static_cast<size_t>(g) * kCols);
-    dst[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    dst[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
-    dst[2] = make_float4(acc[8], 0.f, 0.f, 0.f);
-    dst[3] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // one thread per (row, column): the warps' sums in warp order
+  for (int i = threadIdx.x; i < kRows * kCols; i += kWarp * kWarps) {
+    const int rr = i / kCols, col = i % kCols;
+    if (r0 + rr >= Np) continue;
+    float v = 0.f;
+    if (col < kSums) {
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) v += s_part[rr][w][col];
+    }
+    out[static_cast<size_t>(r0) * kCols + i] = v;
   }
 }
 
@@ -174,9 +265,8 @@ extern "C" int chunk_backward(const float* table, const float* bbox, const float
                               float* out, int Np, int tb_x, int tb_y, int H, int W,
                               void* stream) {
   if (Np > 0) {
-    const int blocks = (Np + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    chunk_backward_kernel<<<blocks, kWarp * kWarpsPerBlock, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+    const int blocks = (Np + kRows - 1) / kRows;
+    chunk_backward_kernel<<<blocks, kWarp * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
         table, bbox, v_img, out, Np, tb_x, tb_y, H, W);
   }
   return static_cast<int>(cudaGetLastError());

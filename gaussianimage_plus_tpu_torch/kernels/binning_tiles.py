@@ -4,8 +4,9 @@ Port of ``gaussianimage_plus_tpu/kernels/binning_pallas.py``:
 ``bin_gaussians_pallas`` (``:92-139``, TPU kernel #13, body ``:43-89``) and
 its ``_counts_from_bbox``. On the TPU it compacts each tile's members by
 matrix products on the MXU; here it is kernel E, ``tile_bin``
-(``csrc/tile_bin.cu``): one warp per tile compacts the members in id order
-with warp ballots. Its ``TileBins`` equal ``core/binning.py``'s ``'top_k'``
+(``csrc/tile_bin.cu``): a block keeps the ids whose bbox holds its tile row
+and window, in id order, and a warp per tile compacts its members from that
+short list with warp ballots. Its ``TileBins`` equal ``core/binning.py``'s ``'top_k'``
 selection exactly: ids, mask and count.
 """
 
@@ -16,7 +17,7 @@ import ctypes
 import torch
 
 from ..core.binning import TileBins, select_members, tile_bbox_table
-from ..core.gaussian2d import BLOCK_H, BLOCK_W, Projected, tile_bounds_for
+from ..core.gaussian2d import BLOCK_H, BLOCK_W, Projected, check_kernel_tiles, tile_bounds_for
 from . import _build
 
 
@@ -74,8 +75,7 @@ def bin_gaussians_tiles(proj: Projected, H: int, W: int, cap: int = 256,
                         block_h: int = BLOCK_H, block_w: int = BLOCK_W) -> TileBins:
     """``bin_gaussians_pallas``: the same ``TileBins`` as
     ``core.binning.bin_gaussians(method='top_k')``, through kernel E."""
-    if (block_h, block_w) != (BLOCK_H, BLOCK_W):
-        raise NotImplementedError("the port's kernels render 16x16 tiles only")
+    check_kernel_tiles(block_h, block_w, "bin_method='pallas'")
     tb_x, tb_y = tile_bounds_for(H, W, block_h, block_w)
     bbox = tile_bbox_table(proj.xys, proj.radii, (tb_x, tb_y), proj.valid)
     ids, count = tile_bin(bbox, tb_x, tb_y, cap)

@@ -32,17 +32,12 @@ from __future__ import annotations
 
 import torch
 
-from ..core.gaussian2d import BLOCK_H, BLOCK_W, Projected, tile_bounds_for
+from ..core.gaussian2d import BLOCK_H, BLOCK_W, Projected, check_kernel_tiles, tile_bounds_for
 from .raster_list import (RasterizeChunks, _bbox_members, _chunk_lists, _table_bbox,
                           chunk_backward, chunk_list_forward, split_payload)
 
 DENSE_KC = 128   # rows per chunk of the dense kernels (raster_dense_pallas.KC)
 SWEEP_KC = 64    # default kc of the sweep and range forwards
-
-
-def _check_blocks(block_h: int, block_w: int) -> None:
-    if (block_h, block_w) != (BLOCK_H, BLOCK_W):
-        raise NotImplementedError("the port's kernels render 16x16 tiles only")
 
 
 def _no_list(T: int, dev):
@@ -91,7 +86,7 @@ def rasterize_dense_pallas(proj: Projected, colors, opacity, H: int, W: int,
                            block_h: int = BLOCK_H, block_w: int = BLOCK_W) -> torch.Tensor:
     """Forward-only dense render -> unclamped [H, W, 3] (kernel B over every
     chunk of 128 rows)."""
-    _check_blocks(block_h, block_w)
+    check_kernel_tiles(block_h, block_w, "rasterize_dense_pallas")
     return _forward(proj, colors, opacity, H, W, DENSE_KC, dense_lists)
 
 
@@ -100,7 +95,7 @@ def rasterize_sweep_pallas(proj: Projected, colors, opacity, H: int, W: int,
                            kc: int = SWEEP_KC) -> torch.Tensor:
     """Forward-only chunk-skip sweep render -> unclamped [H, W, 3] (kernel B
     over each tile's member chunks)."""
-    _check_blocks(block_h, block_w)
+    check_kernel_tiles(block_h, block_w, "rasterize_sweep_pallas")
     return _forward(proj, colors, opacity, H, W, kc, sweep_lists)
 
 
@@ -109,7 +104,7 @@ def rasterize_range_pallas(proj: Projected, colors, opacity, H: int, W: int,
                            kc: int = SWEEP_KC) -> torch.Tensor:
     """Forward-only chunk-range render -> unclamped [H, W, 3] (kernel B over
     each tile's member-id chunk interval)."""
-    _check_blocks(block_h, block_w)
+    check_kernel_tiles(block_h, block_w, "rasterize_range_pallas")
     return _forward(proj, colors, opacity, H, W, kc, range_lists)
 
 
@@ -118,7 +113,7 @@ def dense_backward(proj: Projected, colors, opacity, v_img, H: int, W: int,
     """Per-Gaussian gradients (v_xys, v_conics, v_colors, v_opacity) of the
     cap-free render over all valid Gaussians, through kernel C on the table
     padded to 128 rows (``_dense_prepare``)."""
-    _check_blocks(block_h, block_w)
+    check_kernel_tiles(block_h, block_w, "dense_backward")
     table, bbox, N, _ = _table_bbox(proj, colors, opacity, H, W, DENSE_KC)
     return split_payload(chunk_backward(table, bbox, v_img.contiguous()), N, opacity)
 
@@ -133,7 +128,7 @@ def sweep_backward(proj: Projected, colors, opacity, v_img, H: int, W: int,
 
 def _differentiable(xys, conics, colors, opacity, radii, valid, H, W, block_h, block_w,
                     kc, lists) -> torch.Tensor:
-    _check_blocks(block_h, block_w)
+    check_kernel_tiles(block_h, block_w, "the cap-free differentiable render")
     return RasterizeChunks.apply(xys, conics, colors, opacity, radii, valid, H, W, kc, lists)
 
 

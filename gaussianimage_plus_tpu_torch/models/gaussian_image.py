@@ -21,7 +21,9 @@ PyTorch tiled path with the capped semantics and the JAX package's VJP, as
 the JAX ``render`` does. ``'auto'`` follows the JAX rule on the card
 (``list_t`` when the tile grid divides 16, else ``'pallas'``) and gives
 ``'xla'`` on the CPU, as the JAX package does off the TPU. The forward-only
-``render_fast`` adds the chunk-range enumeration, ``sweep='range'``.
+``render_fast`` adds the chunk-range enumeration, ``sweep='range'``. The
+kernels render 16x16 tiles; other tile sizes take the plain path only
+(``core.gaussian2d.check_kernel_tiles``).
 
 The render clamps with ``torch.minimum(torch.maximum(img, 0), 1)``, whose
 gradient at exactly 0 or 1 is one half, as ``jnp.clip``'s is
@@ -38,10 +40,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.binning import bin_gaussians
-from ..core.gaussian2d import (BLOCK_H, BLOCK_W, Projected, cholesky_to_cov2d,
+from ..core.gaussian2d import (BLOCK_H, BLOCK_W, Projected, check_kernel_tiles,
+                               cholesky_to_cov2d,
                                project_gaussians_2d_covariance, psd_valid_mask,
                                scale_rot_to_cov2d, slv_bound, tile_bounds_for)
-from ..core.render_tiled import rasterize_tiled
+from ..core.render_tiled import rasterize_tiled, render_table
 from ..kernels.binning_tiles import bin_gaussians_tiles
 from ..kernels.raster_binned import prepare_raster, rasterize_binned, rasterize_prepared_flat
 from ..kernels.raster_dense import (rasterize_dense, rasterize_dense_pallas,
@@ -164,18 +167,20 @@ def project(params: GaussianParams, state_active: torch.Tensor, bound: torch.Ten
 def resolve_backend(cfg: GaussianConfig, device) -> str:
     """Resolve ``raster_backend='auto'`` for tensors on ``device``: on CUDA
     ``'list_t'`` when the tile grid divides ``TB_T`` = 16, else the binned
-    kernel ``'pallas'``; on the CPU the plain tiled path ``'xla'``."""
+    kernel ``'pallas'``; on the CPU the plain tiled path ``'xla'``. On CUDA
+    with tiles other than 16x16 it raises (``check_kernel_tiles``) rather than
+    resolve to the plain path on the card."""
     if cfg.raster_backend != "auto":
         return cfg.raster_backend
     if torch.device(device).type != "cuda":
         return "xla"
+    check_kernel_tiles(cfg.block_h, cfg.block_w, "raster_backend='auto' on a CUDA device")
     tb_x, tb_y = tile_bounds_for(cfg.H, cfg.W, cfg.block_h, cfg.block_w)
     return "list_t" if (tb_x * tb_y) % TB_T == 0 else "pallas"
 
 
-def _check_supported(cfg: GaussianConfig) -> None:
-    if (cfg.block_h, cfg.block_w) != (BLOCK_H, BLOCK_W):
-        raise NotImplementedError("the port's kernels render 16x16 tiles only")
+# backends that launch a kernel, so render 16x16 tiles only (check_kernel_tiles)
+_KERNEL_BACKENDS = frozenset({"pallas", "list", "list_t", "dense", "sweep"})
 
 
 def _inputs(state, cfg, cov_override, means_override, colors_override):
@@ -199,7 +204,10 @@ def render(state: GaussianState, cfg: GaussianConfig,
     """Forward pass -> [H, W, 3] clamped to [0, 1]: project -> (bin) ->
     rasterize -> clamp, on the device of the state's tensors."""
     backend = resolve_backend(cfg, state.active.device)
-    _check_supported(cfg)
+    if backend in _KERNEL_BACKENDS:
+        check_kernel_tiles(cfg.block_h, cfg.block_w, f"raster_backend={backend!r}")
+    elif cfg.bin_method == "pallas":
+        check_kernel_tiles(cfg.block_h, cfg.block_w, "bin_method='pallas'")
     proj, colors, opacity = _inputs(state, cfg, cov_override, means_override,
                                     colors_override)
     if backend in ("list", "list_t"):
@@ -220,7 +228,7 @@ def render(state: GaussianState, cfg: GaussianConfig,
                                bins.ids, bins.mask, proj.radii, cfg.H, cfg.W)
     else:
         img = rasterize_tiled(proj.xys, proj.conics, colors, opacity,
-                              bins.ids, bins.mask, cfg.H, cfg.W)
+                              bins.ids, bins.mask, cfg.H, cfg.W, cfg.block_h, cfg.block_w)
     return _clip01(img)
 
 
@@ -232,19 +240,25 @@ def prepare_render(state: GaussianState, cfg: GaussianConfig,
     """Bin-once stage of the decode fast path: project + bin + gather into
     a ``kernels.raster_binned.Prepared`` table. ``bin_method='pallas'``
     bins with ``'top_k'`` here (the same bins), as in the JAX package."""
-    _check_supported(cfg)
     proj, colors, opacity = _inputs(state, cfg, cov_override, means_override,
                                     colors_override)
     method = "top_k" if cfg.bin_method == "pallas" else cfg.bin_method
     bins = bin_gaussians(proj, cfg.H, cfg.W, cap=cap or cfg.tile_cap,
                          block_h=cfg.block_h, block_w=cfg.block_w, method=method)
     return prepare_raster(proj.xys, proj.conics, colors, opacity,
-                          bins.ids, bins.mask, cfg.H, cfg.W)
+                          bins.ids, bins.mask, cfg.H, cfg.W, cfg.block_h, cfg.block_w)
 
 
 def render_prepared(prep, cfg: GaussianConfig) -> torch.Tensor:
-    """Per-frame render from a prepared table -> [H, W, 3] in [0, 1]."""
-    return _clip01(rasterize_prepared_flat(prep, cfg.H, cfg.W))
+    """Per-frame render from a prepared table -> [H, W, 3] in [0, 1]:
+    kernel A on 16x16 tiles (whatever the backend, as the JAX package runs
+    its flat kernel), else the plain blend of the ``'xla'`` path."""
+    if (cfg.block_h, cfg.block_w) == (BLOCK_H, BLOCK_W):
+        return _clip01(rasterize_prepared_flat(prep, cfg.H, cfg.W))
+    backend = resolve_backend(cfg, prep.raw.device)
+    if backend in _KERNEL_BACKENDS:
+        check_kernel_tiles(cfg.block_h, cfg.block_w, f"raster_backend={backend!r}")
+    return _clip01(render_table(prep.raw, prep.counts, cfg.H, cfg.W, cfg.block_h, cfg.block_w))
 
 
 def render_fast(state: GaussianState, cfg: GaussianConfig,
@@ -255,8 +269,9 @@ def render_fast(state: GaussianState, cfg: GaussianConfig,
     """Forward-only cap-free render (the decode/eval fast path) -> [H, W, 3]
     in [0, 1]. ``sweep`` picks the chunk enumeration of kernel B, as in the
     JAX package: ``False`` the dense kernel (every chunk), ``True`` the
-    chunk-skip sweep, ``'range'``, ``'list'`` or ``'list_t'``."""
-    _check_supported(cfg)
+    chunk-skip sweep, ``'range'``, ``'list'`` or ``'list_t'``. Each is
+    kernel B, so the tiles must be 16x16."""
+    check_kernel_tiles(cfg.block_h, cfg.block_w, f"render_fast(sweep={sweep!r})")
     proj, colors, opacity = _inputs(state, cfg, cov_override, means_override,
                                     colors_override)
     if sweep == "range":

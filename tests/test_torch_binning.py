@@ -1,5 +1,5 @@
 """Port selection plumbing against the JAX package: ``bin_gaussians``
-(``top_k`` and ``scatter``, with an overflowing tile at a small cap),
+(``top_k``, ``scatter`` and ``rank``, with an overflowing tile at a small cap),
 ``morton_perm`` and the chunk-list lists (``_table_bbox``/``_chunk_lists``,
 also at ``lmax=1`` where the residual interval is live). Integer outputs must
 be exactly equal, on random scenes and on every committed fitted state.
@@ -65,7 +65,7 @@ def assert_lists_equal(pj, pt, colors, H, W, kc, lmax, what=""):
     return cnt, hi2
 
 
-@pytest.mark.parametrize("method", ["top_k", "scatter"])
+@pytest.mark.parametrize("method", ["top_k", "scatter", "rank"])
 @pytest.mark.parametrize("cap", [64, 8, 1])
 def test_bin_gaussians_scene(method, cap):
     xy, cov, colors, opacity, H, W = scene(n=120, seed=11, n_invalid=5)
@@ -79,15 +79,18 @@ def test_bin_gaussians_scene(method, cap):
         assert int(bt.count.max()) == cap
 
 
-def test_bin_methods_not_ported_raise():
-    """``'hier'`` and ``'pallas'`` were refused before they were ported; now
-    they bin, and give the ``'top_k'`` bins where no super-tile overflows."""
+def test_every_bin_method_gives_the_top_k_bins():
+    """``'hier'``, ``'pallas'`` and ``'rank'`` were refused before they were
+    ported; now they bin, and give the ``'top_k'`` bins (``'hier'`` where no
+    super-tile overflows)."""
     xy, cov, *_ , H, W = scene(n=10, seed=1)
     _, pt = both_projections(xy, cov, H, W)
     ref = tb.bin_gaussians(pt, H, W)
-    for method in ("hier", "pallas"):
+    for method in ("hier", "pallas", "rank"):
         assert_bins_equal(tb.bin_gaussians(pt, H, W, method=method), ref, method)
     assert int(tb.bin_gaussians(pt, H, W, method="hier").super_overflow) == 0
+    with pytest.raises(ValueError, match="unknown binning method"):
+        tb.bin_gaussians(pt, H, W, method="sort")
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -130,3 +133,29 @@ def test_selection_committed_state(path):
     _eq(tb.morton_perm(pt.xys, pt.valid, H, W), perm_j, "perm")
     colors = tgi.colors_of(st.params, cfg_t).numpy()
     assert_lists_equal(pj, pt, colors, H, W, trl.KC_T, trl.LMAX, "list_t lists")
+
+
+RANK_STATES = STATES[::12]
+
+
+@pytest.mark.parametrize("path", RANK_STATES, ids=[os.path.basename(os.path.dirname(p))[12:] + "-"
+                                                    + os.path.basename(p)[:-4] for p in RANK_STATES])
+def test_rank_bins_committed_state(path):
+    """``'rank'`` bins of a fitted 768x512 state at cap 256 equal the JAX
+    ``'rank'`` bins and the port's ``'top_k'`` bins."""
+    d = dict(np.load(path))
+    cfg_t = config_from_numpy(d)
+    H, W = cfg_t.H, cfg_t.W
+    st = state_from_numpy(d, device="cpu")
+    params_j = jgi.GaussianParams(xyz=jnp.asarray(d["xyz"]), cov2d=jnp.asarray(d["cov2d"]),
+                                  features=jnp.asarray(d["features"]))
+    cfg_j = jgi.GaussianConfig(H=H, W=W, max_num_points=cfg_t.max_num_points,
+                               color_norm=cfg_t.color_norm)
+    pj = jgi.project(params_j, jnp.asarray(d["active"]), jnp.asarray(d["bound"]), cfg_j)
+    pt = tgi.project(st.params, st.active, st.bound, cfg_t)
+    rank = tb.bin_gaussians(pt, H, W, cap=256, method="rank")
+    assert_bins_equal(rank, _jax_bins(pj, H, W, 256, "rank"), "rank vs JAX rank, cap 256")
+    top_k = tb.bin_gaussians(pt, H, W, cap=256, method="top_k")
+    for k in ("ids", "mask", "count"):
+        assert torch.equal(getattr(rank, k), getattr(top_k, k)), f"rank vs top_k {k}"
+    assert int(rank.count.sum()) > 0

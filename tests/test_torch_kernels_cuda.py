@@ -20,17 +20,24 @@ Kernel D: the same, per column of its [N, 9] output. Kernel E: ids and counts
 equal the plain version's exactly.
 
 Kernel B stages each tile's members into a shared list of 512 and blends it
-whenever the next batch of 256 visited rows might not fit. Kernel D numbers
-the live (tile, slot) pairs with a scan (stage 0), gives every live slot 8
-threads on a persistent grid of 32 slots a block (stage 1, so one tile's
-slots may spread over several blocks), and sums each Gaussian's payload with
-one warp whose lanes search its bbox tiles (stage 2). The cases below drive
-those paths: a tile with 600 members (several blends of B's list), members
-reached only through the residual interval, every chunk enumeration, a
-Gaussian whose bbox covers the whole grid (stage 2's lanes loop), tiles over
-their cap (a bbox tile lacks the slot), a tile of 300 live slots (spread over
-ten blocks), invalid rows, ragged edge tiles, and two launches against each
-other.
+whenever the next batch of 256 visited rows might not fit. Kernel C gives a
+block 8 table rows and each of its warps an equal share of their (row, bbox
+tile) pairs, and adds the warps' sums per row in shared memory in warp order.
+Kernel D numbers the live (tile, slot) pairs with a scan (stage 0), gives
+every live slot 8 threads on a persistent grid of 32 slots a block (stage 1,
+so one tile's slots may spread over several blocks), and sums each
+Gaussian's payload with one warp whose lanes search its bbox tiles (stage 2).
+Kernel E gives a block a window of one tile row, filters the bbox table
+batch by batch down to the ids over that window, and lets each tile's warp
+pick its members from that list. The cases below drive those paths: a tile
+with 600 members (several blends of B's list), members reached only through
+the residual interval, every chunk enumeration, a Gaussian whose bbox covers
+the whole grid (C splits it over a block's warps, beside thousands of small
+rows; D's stage 2 lanes loop), tiles over their cap (a bbox tile lacks the
+slot; E stops early), a tile of 300 live slots (spread over ten blocks),
+invalid rows, ragged edge tiles, tables not a multiple of E's batch or of 32
+rows and larger than one batch, a big grid where E's warps own 4 tiles, and
+two launches against each other.
 """
 
 import functools
@@ -352,3 +359,91 @@ def test_tile_table_backward_clamps_counts(card):
     ref = raster_binned.tile_table_backward_plain(*args)
     out = raster_binned.tile_table_backward(*(a.to(card) for a in args))
     _payload_close(out, ref, "kernel D clamped counts")
+
+
+def _bbox_table(n, tb_x, tb_y, seed, extent=4, crowd=0, n_whole=0, n_invalid=0):
+    """[n, 4] int32 tile bboxes ``(xmin, xmax, ymin, ymax)`` made with numpy:
+    random boxes of at most ``extent`` tiles a side, ``crowd`` of them over
+    tile (1, 1), ``n_whole`` over the whole grid and ``n_invalid`` with the
+    empty bbox ``(1, 0, 1, 0)``, the special rows at random positions."""
+    rng = np.random.default_rng(seed)
+    x0, y0 = rng.integers(0, tb_x, n), rng.integers(0, tb_y, n)
+    w, h = rng.integers(1, extent + 1, n), rng.integers(1, extent + 1, n)
+    bbox = np.stack([x0, np.minimum(x0 + w, tb_x), y0, np.minimum(y0 + h, tb_y)], -1)
+    rows = rng.permutation(n)
+    i = 0
+    for count, box in ((crowd, (1, 3, 1, 2)), (n_whole, (0, tb_x, 0, tb_y)),
+                       (n_invalid, (1, 0, 1, 0))):
+        bbox[rows[i:i + count]] = box
+        i += count
+    return torch.as_tensor(bbox.astype(np.int32))
+
+
+# kernel E reads the table in batches of 1024 ids (32 slices of 32); a block
+# owns 8 tiles of one tile row (32 from 4096 tiles on, 4 a warp) and stops
+# when all of them hold `cap` members
+E_CASES = {
+    "N 1037, not a multiple of 32 or of a batch": dict(n=1037, grid=(48, 32), cap=256),
+    "N 20000, 20 batches, 2K grid": dict(n=20000, grid=(128, 84), cap=256, extent=3),
+    "tile over cap 1": dict(n=3000, grid=(48, 32), cap=1, crowd=300),
+    "tile over cap 8": dict(n=3000, grid=(48, 32), cap=8, crowd=300),
+    "tile over cap 256": dict(n=3000, grid=(48, 32), cap=256, crowd=600),
+    "every row invalid": dict(n=2000, grid=(48, 32), cap=256, n_invalid=2000),
+    "whole-grid bboxes": dict(n=3000, grid=(48, 32), cap=256, n_whole=5, n_invalid=40),
+    "odd grid 47x31": dict(n=5000, grid=(47, 31), cap=256, n_invalid=70),
+    "big grid 127x41, 4 tiles a warp, over cap 8": dict(n=9000, grid=(127, 41), cap=8,
+                                                         crowd=300, n_whole=2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(E_CASES))
+def test_tile_bin_hard_cases(card, case):
+    kw = dict(E_CASES[case])
+    (tb_x, tb_y), cap = kw.pop("grid"), kw.pop("cap")
+    bbox = _bbox_table(tb_x=tb_x, tb_y=tb_y, seed=len(case), **kw).to(card)
+    ref_ids, ref_count = binning_tiles.tile_bin_plain(bbox, tb_x, tb_y, cap)
+    before = binning_tiles.tile_bin.launches
+    ids, count = binning_tiles.tile_bin(bbox, tb_x, tb_y, cap)
+    assert binning_tiles.tile_bin.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(ids, ref_ids) and torch.equal(count, ref_count), case
+    if kw.get("crowd"):
+        assert int(count.max()) == cap
+    if kw.get("n_invalid") == kw["n"]:
+        assert not bool(count.any()) and not bool(ids.any())
+    if kw.get("n_whole"):
+        assert bool((count > 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kc", [128, 64])
+def test_chunk_backward_imbalanced_rows(card, kc):
+    """A Gaussian over the whole ragged 500x760 grid beside ~4000 Gaussians
+    of at most 2x2 tiles and invalid rows: a block's warps split the big
+    row's pairs between them. Against the plain version, and two launches."""
+    H, W, n = 500, 760, 4000
+    rng = np.random.default_rng(kc)
+    xy = np.stack([rng.uniform(0, W, n), rng.uniform(0, H, n)], -1).astype(np.float32)
+    a, c = rng.uniform(1.0, 4.0, n), rng.uniform(1.0, 4.0, n)
+    cov = np.stack([a, rng.uniform(-0.5, 0.5, n) * np.sqrt(a * c), c], -1).astype(np.float32)
+    cov[1234] = np.array([4e6, 0.0, 4e6], np.float32)        # the whole grid
+    cov[-37:] = np.array([1.0, 2.0, 1.0], np.float32)        # invalid
+    proj = project_gaussians_2d_covariance(torch.as_tensor(xy), torch.as_tensor(cov), H, W)
+    colors = torch.as_tensor(rng.uniform(0, 1, (n, 3)).astype(np.float32))
+    table, bbox, _, _ = raster_list._table_bbox(proj, colors, torch.ones(n), H, W, kc)
+    tb_x, tb_y = -(-W // 16), -(-H // 16)
+    live = table[:, 15] > 0
+    area = ((bbox[:, 1].clamp(max=tb_x) - bbox[:, 0].clamp(min=0)).clamp(min=0)
+            * (bbox[:, 3].clamp(max=tb_y) - bbox[:, 2].clamp(min=0)).clamp(min=0))[live]
+    assert int(area.max()) == tb_x * tb_y and int((area <= 4).sum()) >= 3900
+    assert int((~live[:n]).sum()) >= 37
+    v_img = torch.as_tensor(rng.normal(size=(H, W, 3)).astype(np.float32))
+    ref = raster_list.chunk_backward_plain(table, bbox, v_img)
+    args = (table.to(card), bbox.to(card), v_img.to(card))
+    out = raster_list.chunk_backward(*args)
+    again = raster_list.chunk_backward(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), "kernel C: two launches differ"
+    _payload_close(out, ref, f"kernel C imbalanced rows kc {kc}")
+    assert not out[:n][~live[:n]].any(), "an invalid row has a gradient"

@@ -67,39 +67,51 @@ def both_projections(xy, cov, H, W, perm=None):
     return pj, pt
 
 
-def sigma_error_bound(xys, conics, colors, ids, mask, H, W, C=8.0):
+def sigma_error_bound(xys, conics, colors, ids, mask, H, W, C=8.0, block_h=16, block_w=16):
     """[H, W, 1] bound on how far two float32 evaluations of the expanded
     blend can disagree at each pixel: per member, C ulps of the magnitude of
     the expanded quadratic's terms times d(alpha*rgb)/d(sigma), plus the
     whole contribution of a pair whose gates (sigma >= 0, alpha >= 1/255)
-    lie inside that band."""
-    xys, conics, colors = (np.asarray(a, np.float64) for a in (xys, conics, colors))
+    lie inside that band (``gate_band``), on tiles of ``block_h`` x
+    ``block_w`` pixels."""
+    colors = np.asarray(colors, np.float64)
     ids, mask = np.asarray(ids), np.asarray(mask)
-    tb_x, tb_y = -(-W // 16), -(-H // 16)
-    py, px = (a.astype(np.float64) for a in np.divmod(np.arange(256), 16))
-    E = np.zeros((ids.shape[0], 256))
+    tb_x, tb_y = -(-W // block_w), -(-H // block_h)
+    E = np.zeros((ids.shape[0], block_h * block_w))
     for t in range(ids.shape[0]):
         k = ids[t][mask[t]]
         if k.size == 0:
             continue
-        ty, tx = divmod(t, tb_x)
-        c1, c2, c3 = (conics[k, i][:, None] for i in range(3))
-        lmx = xys[k, 0][:, None] - tx * 16
-        lmy = xys[k, 1][:, None] - ty * 16
-        dx, dy = lmx - px, lmy - py
-        sig = 0.5 * (c1 * dx * dx + c3 * dy * dy) + c2 * dx * dy
-        mag = (0.5 * abs(c1) * px * px + 0.5 * abs(c3) * py * py + abs(c2) * px * py
-               + (abs(c1 * lmx) + abs(c2 * lmy)) * px + (abs(c2 * lmx) + abs(c3 * lmy)) * py
-               + 0.5 * abs(c1) * lmx * lmx + 0.5 * abs(c3) * lmy * lmy + abs(c2 * lmx * lmy))
-        ds = C * _U * mag
-        alpha = np.minimum(1.0, np.exp(-sig))
-        a_hi = np.minimum(1.0, np.exp(-(sig - ds)))
-        live = (sig >= 0) & (alpha >= 1 / 255)
-        edge = (np.abs(sig) <= ds) | (np.abs(a_hi - 1 / 255) <= (a_hi - alpha) + 8 * _U)
+        alpha, ds, a_hi, live, edge = gate_band(xys, conics, k, t, tb_x, C, block_h, block_w)
         e = np.where(live, alpha * ds, 0.0) + np.where(edge, a_hi, 0.0)
         E[t] = (np.abs(colors[k]).max(1)[:, None] * e).sum(0)
-    img = E.reshape(tb_y, tb_x, 16, 16).transpose(0, 2, 1, 3).reshape(tb_y * 16, tb_x * 16)
-    return img[:H, :W, None]
+    img = E.reshape(tb_y, tb_x, block_h, block_w).transpose(0, 2, 1, 3)
+    return img.reshape(tb_y * block_h, tb_x * block_w)[:H, :W, None]
+
+
+def gate_band(xys, conics, k, t, tb_x, C=8.0, block_h=16, block_w=16):
+    """Members ``k`` of tile ``t``, per (member, pixel), in float64: alpha,
+    the rounding band ``ds`` of sigma (C ulps of the magnitude of the
+    expanded quadratic's terms), alpha at the band's low edge, whether the
+    pair contributes, and whether its gate lies inside the band (``edge``:
+    two float32 evaluations may decide it differently)."""
+    xys, conics = np.asarray(xys, np.float64), np.asarray(conics, np.float64)
+    py, px = (a.astype(np.float64) for a in np.divmod(np.arange(block_h * block_w), block_w))
+    ty, tx = divmod(t, tb_x)
+    c1, c2, c3 = (conics[k, i][:, None] for i in range(3))
+    lmx = xys[k, 0][:, None] - tx * block_w
+    lmy = xys[k, 1][:, None] - ty * block_h
+    dx, dy = lmx - px, lmy - py
+    sig = 0.5 * (c1 * dx * dx + c3 * dy * dy) + c2 * dx * dy
+    mag = (0.5 * abs(c1) * px * px + 0.5 * abs(c3) * py * py + abs(c2) * px * py
+           + (abs(c1 * lmx) + abs(c2 * lmy)) * px + (abs(c2 * lmx) + abs(c3 * lmy)) * py
+           + 0.5 * abs(c1) * lmx * lmx + 0.5 * abs(c3) * lmy * lmy + abs(c2 * lmx * lmy))
+    ds = C * _U * mag
+    alpha = np.minimum(1.0, np.exp(-sig))
+    a_hi = np.minimum(1.0, np.exp(-(sig - ds)))
+    live = (sig >= 0) & (alpha >= 1 / 255)
+    edge = (np.abs(sig) <= ds) | (np.abs(a_hi - 1 / 255) <= (a_hi - alpha) + 8 * _U)
+    return alpha, ds, a_hi, live, edge
 
 
 def assert_render_close(out, ref, bound=None, max_frac=0.0, what=""):
