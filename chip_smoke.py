@@ -15,11 +15,16 @@ hand-written CUDA kernels against their plain PyTorch versions. Phases:
 1. card: name and power limit from ``nvidia-smi``, checked against torch;
 2. build: the five kernels from ``csrc/``, one ``nvcc`` per source, together;
 3. kernel vs plain version on the card, at full width: kernel A
-   (``tile_table_forward``) on kodim01's binned table, untrimmed (cap 256)
-   and trimmed (bin-once); kernel B (``chunk_list_forward``) on a fitted
+   (``tile_table_forward``: a block of 128 threads a tile reads the tile's
+   rows of the attribute table through the slot ids, a thread 2 pixels of
+   a column) on kodim01's slot ids, untrimmed (cap 256) and trimmed
+   (bin-once), on a synthetic 500x760 grid and (after phase 4) on the binned
+   fit state after growth and the 2K state: bit-equal to its plain version
+   (the same sigma chain, each pixel's rows in slot order). Kernel B
+   (``chunk_list_forward``) on a fitted
    state at kc 128 and kc 64 and on kodim01 in Morton order, and over the
    dense, sweep and range enumerations on kodim01 in stream and Morton order
-   and on the fitted state; both on a synthetic 500x760 grid. Tolerance: ``|kernel - plain| <= 2e-5 +
+   and on the fitted state, and on the synthetic grid. Tolerance: ``|kernel - plain| <= 2e-5 +
    1e-5 |plain|`` at every pixel but at most 0.01% of them, where the two
    evaluations of the expanded quadratic may round across the sigma >= 0 or
    alpha >= 1/255 gate. Kernel C (``chunk_backward``: a block's warps share
@@ -91,12 +96,17 @@ hand-written CUDA kernels against their plain PyTorch versions. Phases:
    state, with the table rows each visits, C at the fit state and kodim01's
    stream-order table, D at the fit state, kodim01's binned table and the 2K
    state, with its live slots, largest tile bbox and each stage's device time
-   under ``torch.profiler``, E at the fit, kodim01 and 2K states; per kernel
+   under ``torch.profiler``, E at the fit, kodim01 and 2K states; at A's
+   three states the ``[T, K, 16]`` gather ``table[ids]`` that fed kernel A
+   before it read through the slot ids, timed alone (A's ``library_ms``: the
+   port no longer runs it);
+   per kernel
    and state the launches of phase 4's paths (the odd-grid fit's taken at
    the fit state, path (e)'s gradients at kodim01's), the bound, and
    ``loss_ms`` = the sum over states of launches x (device_ms - bound_ms),
    which ranks the kernels for redesign; and the device time of a full
-   decode and of each train step under the profiler.
+   decode and of each train step under the profiler, with every gather
+   among a step's entries.
    In some runs the profiler traces none of the kernels launched through the
    port's own libraries: the log then names them, and D's stages are not
    measured.
@@ -248,10 +258,11 @@ def launch_ms(fn, launches: int = FRAMES, reps: int = 5) -> float:
     return statistics.median(per_call)
 
 
-def device_time_per_call(fn, calls: int = 10, top: int = 4, kernels=()):
+def device_time_per_call(fn, calls: int = 10, kernels=()):
     """Device time per call of ``fn`` under ``torch.profiler`` (the sum over
-    the device-side events, kernels and copies), the ``top`` entries, and
-    which of the port's CUDA functions ``kernels`` (names) it did not trace:
+    the device-side events, kernels and copies), every entry by name, most
+    time first, and which of the port's CUDA functions ``kernels`` (names) it
+    did not trace:
     in some runs on the H100 the profiler has traced torch's kernels and
     none of those launched through the port's own libraries, and the sum
     then leaves them out."""
@@ -268,7 +279,7 @@ def device_time_per_call(fn, calls: int = 10, top: int = 4, kernels=()):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     missing = [k for k in kernels if not any(k in name for name, _ in rows)]
-    return sum(ms for _, ms in rows), rows[:top], missing
+    return sum(ms for _, ms in rows), rows, missing
 
 
 def device_ms_per_call(fn, calls: int = FRAMES, reps: int = 5) -> float:
@@ -341,15 +352,17 @@ def gate_pairs(table: torch.Tensor, bbox: torch.Tensor, h: int, w: int) -> tuple
     return gate_counts(t, table[r], h, w)
 
 
-def gate_slots(raw: torch.Tensor, counts: torch.Tensor, h: int, w: int,
+def gate_slots(table: torch.Tensor, ids: torch.Tensor, counts: torch.Tensor, h: int, w: int,
                batch: int = 1 << 16) -> tuple[int, int]:
-    """``gate_counts`` of a kernel D input (the live slots of the table), in
-    batches of slots so that the 2K state fits in memory."""
-    live = torch.arange(raw.shape[1], device=raw.device)[None, :] < counts[:, None]
+    """``gate_counts`` of a kernel A or D input (the live slots, rows of the
+    attribute table through the slot ids), in batches of slots so that the
+    2K state fits in memory."""
+    live = torch.arange(ids.shape[1], device=ids.device)[None, :] < counts[:, None]
     t, k = live.nonzero(as_tuple=True)
+    rows = table[ids[t, k].long()]
     on_image = passing = 0
     for i in range(0, t.numel(), batch):
-        a, b = gate_counts(t[i:i + batch], raw[t[i:i + batch], k[i:i + batch]], h, w)
+        a, b = gate_counts(t[i:i + batch], rows[i:i + batch], h, w)
         on_image, passing = on_image + a, passing + b
     return on_image, passing
 
@@ -408,10 +421,12 @@ def main() -> int:
     return 0
 
 
-def write_report() -> None:
+def write_report(name: str = "chip_smoke_report.json", data=None) -> None:
+    """Write ``data`` (default: this run's report) as JSON into the output
+    directory."""
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "chip_smoke_report.json").write_text(json.dumps(report, indent=1))
+    (out / name).write_text(json.dumps(report if data is None else data, indent=1))
 
 
 def run() -> None:
@@ -444,6 +459,15 @@ def run() -> None:
         n = {key: k.launches for key, k in kernels.items()}
         path_launches[path] = n
         return n
+
+    def compare_a(name, inputs, h, w):
+        """Kernel A on (table, slot ids, counts) against its plain version on
+        the card: the same sigma chain and each pixel's rows in slot order,
+        so the two must agree bit for bit."""
+        out, ref = kernel_a(*inputs, h, w), plain_a(*inputs, h, w)
+        mx = compare(name, out, ref)
+        check(torch.equal(out, ref), f"{name}: not bit-equal to the plain version (max {mx:.3g})")
+        return mx
     dev = torch.device("cuda")
 
     # ---- 1. card
@@ -493,11 +517,10 @@ def run() -> None:
     H, W = cfg01.H, cfg01.W
     prep_full = prepare_decode(dec01.bundle, dec01.enc, dec01.bound, cfg01, dec01.qcfg, trim=False)
     prep_trim = prepare_decode(dec01.bundle, dec01.enc, dec01.bound, cfg01, dec01.qcfg)
-    log(f"  kodim01: {int(dec01.enc.num_active)} Gaussians, table K {prep_full.raw.shape[1]} "
-        f"untrimmed / {prep_trim.raw.shape[1]} trimmed, {int(prep_trim.counts.sum())} members")
+    log(f"  kodim01: {int(dec01.enc.num_active)} Gaussians, slot ids K {prep_full.ids.shape[1]} "
+        f"untrimmed / {prep_trim.ids.shape[1]} trimmed, {int(prep_trim.counts.sum())} members")
     for tag, prep in (("untrimmed cap 256", prep_full), ("trimmed bin-once", prep_trim)):
-        err["a"] = max(err["a"], compare(f"A kodim01 {tag}", kernel_a(prep.raw, prep.counts, H, W),
-                                         plain_a(prep.raw, prep.counts, H, W)))
+        err["a"] = max(err["a"], compare_a(f"A kodim01 {tag}", prep, H, W))
 
     d_state = dict(np.load(states[0]))
     cfg_s = config_from_numpy(d_state)
@@ -546,10 +569,9 @@ def run() -> None:
     ones_o = torch.ones((No,), device=dev)
     proj_o = project_gaussians_2d_covariance(torch.as_tensor(xy, device=dev), cov, Ho, Wo)
     bins_o = bin_gaussians(proj_o, Ho, Wo, cap=256)
-    raw_o, counts_o = raster_binned._prepare(proj_o.xys, proj_o.conics, col_o, ones_o,
-                                             bins_o.ids, bins_o.mask)
-    err["a"] = max(err["a"], compare("A synthetic 500x760", kernel_a(raw_o, counts_o, Ho, Wo),
-                                     plain_a(raw_o, counts_o, Ho, Wo)))
+    tab_o = raster_binned._slot_table(proj_o.xys, proj_o.conics, col_o, ones_o, bins_o.ids,
+                                      bins_o.mask)
+    err["a"] = max(err["a"], compare_a("A synthetic 500x760", tab_o, Ho, Wo))
     inp_o = raster_list.list_inputs(proj_o, col_o, ones_o, Ho, Wo, 128)
     err["b"] = max(err["b"], compare("B synthetic 500x760 kc 128",
                                      kernel_b(*inp_o, 128, Ho, Wo), plain_b(*inp_o, 128, Ho, Wo)))
@@ -617,11 +639,11 @@ def run() -> None:
         if bins is None:
             bins = bin_gaussians(proj, h, w, cap=256)
         n = proj.xys.shape[0]
-        raw, counts = raster_binned._prepare(proj.xys, proj.conics, colors,
-                                             torch.ones((n,), device=dev), bins.ids, bins.mask)
-        ids = raster_binned._slot_ids(bins.ids, bins.mask, n).to(torch.int32).contiguous()
+        table, ids, counts = raster_binned._slot_table(proj.xys, proj.conics, colors,
+                                                       torch.ones((n,), device=dev), bins.ids,
+                                                       bins.mask)
         bbox = raster_binned.tile_bbox_table(proj.xys, proj.radii, tile_bounds_for(h, w))
-        return raw, counts, ids, bbox
+        return table, counts, ids, bbox
 
     def compare_d(tag, proj, colors, h, w, cotangents, bins=None):
         inp = d_inputs(proj, colors, h, w, bins)
@@ -658,7 +680,7 @@ def run() -> None:
     r_o = np.random.default_rng(5)
     target_o = torch.as_tensor(r_o.uniform(0, 1, (Ho, Wo, 3)).astype(np.float32), device=dev)
     with torch.no_grad():
-        img_o = torch.clamp(kernel_a(raw_o, counts_o, Ho, Wo), 0, 1)
+        img_o = torch.clamp(kernel_a(*tab_o, Ho, Wo), 0, 1)
     compare_d("synthetic 500x760", proj_o, col_o, Ho, Wo,
               {"L2": l2_cotangent(img_o, target_o), "normal": normal_cotangent(Ho, Wo, 6)})
     # a tile forced over its cap: 400 centres inside the tile at (80, 80)
@@ -937,18 +959,22 @@ def run() -> None:
                                                  grad_worst_column_rel=grad_rel)
 
     # kernels D and E on the states the paths produced
-    log("[3] kernels D and E on the fit and 2K states")
+    log("[3] kernels A, D and E on the fit and 2K states")
     g_b = res_bin.state
     proj_b, col_b = gi.project(g_b.params, g_b.active, g_b.bound, cfg_fit), gi.colors_of(g_b.params, cfg_fit)
     with torch.no_grad():
         cot_b = l2_cotangent(gi.render(g_b, cfg_bin), fit_target)
     inp_d = compare_d("binned fit state after growth", proj_b, col_b, cfg_fit.H, cfg_fit.W,
                       {"L2": cot_b, "normal": normal_cotangent(cfg_fit.H, cfg_fit.W, 8)})
+    err["a"] = max(err["a"], compare_a("A binned fit state after growth",
+                                       (inp_d[0], inp_d[2], inp_d[1]), cfg_fit.H, cfg_fit.W))
     bbox_e = compare_e("binned fit state after growth", proj_b, cfg_fit.H, cfg_fit.W)
     with torch.no_grad():
         cot2k = l2_cotangent(gi.render(s2k, cfg2k), target2k)
     inp_d2k = compare_d("2K state", proj2k, gi.colors_of(s2k.params, cfg2k), h2, w2,
                         {"L2": cot2k, "normal": normal_cotangent(h2, w2, 9)}, bins2k)
+    err["a"] = max(err["a"], compare_a("A 2K state", (inp_d2k[0], inp_d2k[2], inp_d2k[1]),
+                                       h2, w2))
     bbox_e2k = compare_e("2K state", proj2k, h2, w2)
 
     # the dense oracle (direct form, independent of the tile table) on kodim01
@@ -976,9 +1002,9 @@ def run() -> None:
             median_ms(lambda: decode_bitstream(kodim01, backend="list_t", device=dev)),
         "frame: decode_frame (bin-once)": median_ms(lambda: decode_frame(prep_trim, cfg01)),
         "frame: render auto (list_t), fitted state": median_ms(lambda: gi.render(st, cfg_s)),
-        "kernel A, kodim01 trimmed": launch_ms(lambda: kernel_a(prep_trim.raw, prep_trim.counts, H, W)),
-        "kernel A, kodim01 untrimmed": launch_ms(lambda: kernel_a(prep_full.raw, prep_full.counts, H, W)),
-        "plain A, kodim01 trimmed": launch_ms(lambda: plain_a(prep_trim.raw, prep_trim.counts, H, W)),
+        "kernel A, kodim01 trimmed": launch_ms(lambda: kernel_a(*prep_trim, H, W)),
+        "kernel A, kodim01 untrimmed": launch_ms(lambda: kernel_a(*prep_full, H, W)),
+        "plain A, kodim01 trimmed": launch_ms(lambda: plain_a(*prep_trim, H, W)),
         "kernel B, kodim01 kc 128": launch_ms(lambda: kernel_b(*inp_l, 128, H, W)),
         "kernel B, kodim01 Morton kc 128": launch_ms(lambda: kernel_b(*inp_m, 128, H, W)),
         "plain B, kodim01 kc 128": launch_ms(lambda: plain_b(*inp_l, 128, H, W)),
@@ -1038,9 +1064,9 @@ def run() -> None:
     times["plain D, binned fit state"] = launch_ms(lambda: plain_d(*inp_d, cot_b))
     # kernel A on the binned tables of the fit and 2K states (the training
     # steps' launches), beside kodim01's bin-once table
-    a_states = {"kodim01": (prep_trim.raw, prep_trim.counts, H, W),
-                "fit": (inp_d[0], inp_d[1], cfg_fit.H, cfg_fit.W),
-                "2K": (inp_d2k[0], inp_d2k[1], h2, w2)}
+    a_states = {"kodim01": (*prep_trim, H, W),
+                "fit": (inp_d[0], inp_d[2], inp_d[1], cfg_fit.H, cfg_fit.W),
+                "2K": (inp_d2k[0], inp_d2k[2], inp_d2k[1], h2, w2)}
     for tag in ("fit", "2K"):
         times[f"kernel A, {tag} state"] = launch_ms(lambda a=a_states[tag]: kernel_a(*a))
     tb_fit = tile_bounds_for(cfg_fit.H, cfg_fit.W)
@@ -1068,8 +1094,7 @@ def run() -> None:
     names_a, names_b = ["tile_table_forward_kernel"], ["chunk_list_forward_kernel"]
     names_d = ["slot_start_kernel", "tile_payload_kernel", "payload_gather_kernel"]
     device_ms = {
-        "kernel A, kodim01 trimmed": device_ms_per_call(
-            lambda: kernel_a(prep_trim.raw, prep_trim.counts, H, W)),
+        "kernel A, kodim01 trimmed": device_ms_per_call(lambda: kernel_a(*prep_trim, H, W)),
         "kernel B, kodim01 kc 128": device_ms_per_call(lambda: kernel_b(*inp_l, 128, H, W)),
         "kernel B, kodim01 Morton kc 128": device_ms_per_call(lambda: kernel_b(*inp_m, 128, H, W)),
         "kernel B, fit state kc 128": device_ms_per_call(
@@ -1092,12 +1117,21 @@ def run() -> None:
     for tag, (inp_, cot_, _, _) in d_states.items():
         fn_d = functools.partial(kernel_d, *inp_, cot_)
         device_ms[f"kernel D, {tag}"] = device_ms_per_call(fn_d)
-        _, rows_, missing_ = device_time_per_call(fn_d, top=len(names_d), kernels=names_d)
+        _, rows_, missing_ = device_time_per_call(fn_d, kernels=names_d)
         d_stages[tag] = None if missing_ else [sum(ms for name, ms in rows_ if n in name)
                                                for n in names_d]
     for k, v in device_ms.items():
         log(f"  {k}: {v:.4f} ms device time a call (queued), {times[k]:.4f} ms back to back")
     report["device_ms"] = device_ms
+    # kernel A's yardstick: the [T, K, 16] gather table[ids] that the binned
+    # path ran before kernel A read through the slot ids (the port no longer
+    # calls it), at each of A's states
+    gather_ms = {}
+    for tag, (table_, ids_, *_) in a_states.items():
+        gather_ms[tag] = device_ms_per_call(lambda t_=table_, i_=ids_.long(): t_[i_])
+        log(f"  table[ids] gather, {tag} state ({tuple(ids_.shape)} slots): {gather_ms[tag]:.4f} "
+            f"ms device time a call (queued)")
+    report["gather_device_ms"] = gather_ms
     # the same step through the plain binned path and its VJP, for comparison
     cfg_xla = dataclasses.replace(cfg_fit, raster_backend="xla")
     cur_xla = [tr.init_train_state(cfg_fit, tcfg, 0, gaussians=res.state)]
@@ -1134,19 +1168,26 @@ def run() -> None:
         log(f"  train step, {tag}: {ms:.4f} ms")
         steps.append((tag, fn, ms, names))
     for tag, fn, ms_step, names in steps:
-        busy, top, missing = device_time_per_call(fn, top=6, kernels=names)
+        busy, rows_, missing = device_time_per_call(fn, kernels=names)
         check(busy > 0, f"torch.profiler recorded no device time in a {tag} step")
+        top = rows_[:6]
+        # the [T, K, 16] table gather was once the binned steps' largest entry
+        gathers = [(name, ms) for name, ms in rows_ if "gather" in name.lower()]
         log(f"  train step {tag}: device busy {busy:.4f} ms of a {ms_step:.4f} ms step "
             f"({busy / ms_step:.1%}); top device time: "
             + "; ".join(f"{name[:60]} {ms:.4f} ms" for name, ms in top)
+            + "; gathers: " + ("; ".join(f"{name[:60]} {ms:.4f} ms" for name, ms in gathers)
+                               or "none")
             + (f"; not traced, so left out: {', '.join(missing)}" if missing else ""))
         report.setdefault("train_step_device_time", {})[tag] = dict(
-            busy_ms=busy, step_ms=ms_step, active=n_timed, top=top, not_traced=missing)
+            busy_ms=busy, step_ms=ms_step, active=n_timed, top=top, gathers=gathers,
+            not_traced=missing)
 
     # where a full decode's time goes: device time per frame under torch.profiler
     for backend, names in (("binned", names_a), ("list_t", names_b)):
-        busy, top, missing = device_time_per_call(
+        busy, rows_, missing = device_time_per_call(
             lambda: decode_bitstream(kodim01, backend=backend, device=dev), kernels=names)
+        top = rows_[:4]
         check(busy > 0, f"torch.profiler recorded no device time in a {backend} decode")
         frame = times[f"frame: decode_bitstream {backend} (parse included)"]
         log(f"  decode_bitstream {backend}: device busy {busy:.4f} ms of a {frame:.4f} ms frame "
@@ -1157,12 +1198,13 @@ def run() -> None:
             busy_ms=busy, frame_ms=frame, top=top, not_traced=missing)
 
     # bounds at the timed inputs: what this run's data needs
-    def a_bound(raw_, counts_, h_, w_):
+    def a_bound(table_, ids_, counts_, h_, w_):
         """Kernel A: OPS_PER_PAIR at each live (slot, pixel) pair on the image;
-        bytes: the live table rows, counts and the image written."""
-        live_ = int(counts_.clamp(0, raw_.shape[1]).sum())
-        on_, _ = gate_slots(raw_, counts_, h_, w_)
-        return bound(on_ * OPS_PER_PAIR, live_ * 64 + counts_.numel() * 4 + h_ * w_ * 3 * 4)
+        bytes: the live slots' ids and table rows, counts and the image
+        written (no gathered [T, K, 16] table exists)."""
+        live_ = int(counts_.clamp(0, ids_.shape[1]).sum())
+        on_, _ = gate_slots(table_, ids_, counts_, h_, w_)
+        return bound(on_ * OPS_PER_PAIR, live_ * (4 + 64) + counts_.numel() * 4 + h_ * w_ * 3 * 4)
 
     def c_bound(table_, bbox_, h_, w_):
         """Kernel C: the gate at each (member, pixel) pair on the image, the
@@ -1227,17 +1269,18 @@ def run() -> None:
     # profiler above (slot_start_kernel, tile_payload_kernel, payload_gather_kernel).
     d_bounds = {}
     for tag, (inp_, cot_, h_, w_) in d_states.items():
-        raw_, counts_, _, bbox_ = inp_
-        live_ = int(counts_.clamp(0, raw_.shape[1]).sum())
+        table_, counts_, ids_, bbox_ = inp_
+        live_ = int(counts_.clamp(0, ids_.shape[1]).sum())
         tiles_ = bbox_tiles(bbox_, h_, w_)
-        on_, pass_ = gate_slots(raw_, counts_, h_, w_)
+        on_, pass_ = gate_slots(table_, ids_, counts_, h_, w_)
         bytes_ = (live_ * (64 + 4) + counts_.numel() * 4 + bbox_.numel() * 4
                   + h_ * w_ * 3 * 4 + bbox_.shape[0] * 9 * 4)
         bound_, by_ = bound(on_ * OPS_GATE_C + pass_ * OPS_PASS_C, bytes_)
         stages = (" stage 0 (slot_start_kernel) {:.4f} ms, stage 1 (tile_payload_kernel) {:.4f} "
                   "ms, stage 2 (payload_gather_kernel) {:.4f} ms".format(*d_stages[tag])
                   if d_stages[tag] else " stages not measured: the profiler did not trace them")
-        log(f"  kernel D, {tag} ({h_}x{w_}, table {tuple(raw_.shape)}): {live_} live slots, "
+        log(f"  kernel D, {tag} ({h_}x{w_}, table {tuple(table_.shape)}, slot ids "
+            f"{tuple(ids_.shape)}): {live_} live slots, "
             f"{int(counts_.max())} in the fullest tile, {bbox_.shape[0]} Gaussians, tile bbox mean "
             f"{float(tiles_.float().mean()):.1f} / largest {int(tiles_.max())} tiles; {pass_} of "
             f"{on_} (slot, pixel) pairs pass the gate;" + stages)
@@ -1247,7 +1290,7 @@ def run() -> None:
             pairs_on_image=on_, pairs_passing=pass_, stage_ms=d_stages[tag])
         d_bounds[tag] = (bound_, by_)
         if tag == "binned fit state":
-            raw_d, bbox_d = raw_, bbox_
+            ids_d, bbox_d = ids_, bbox_
             members_d, on_image_d, passing_d, bound_d, by_d = live_, on_, pass_, bound_, by_
     bound_e, by_e = e_bound(*e_states["fit"])
     total = {key: sum(n[key] for n in path_launches.values()) for key in kernels}
@@ -1327,8 +1370,11 @@ def run() -> None:
                       "(rasterize_prepared_flat)",
              launches=total["a"], max_abs_err=err["a"],
              ms=times["kernel A, kodim01 trimmed"], device_ms=device_ms["kernel A, kodim01 trimmed"],
-             plain_ms=times["plain A, kodim01 trimmed"], bound_ms=bound_a, bound_by=by_a, library_ms=None,
-             shape=f"kodim01 bin-once table {tuple(prep_trim.raw.shape)}, {members_a} members"),
+             plain_ms=times["plain A, kodim01 trimmed"], bound_ms=bound_a, bound_by=by_a,
+             library_ms=gather_ms["kodim01"], library_ms_by_state=gather_ms,
+             library_call="table[ids] (the [T, K, 16] gather that fed kernel A before it "
+                          "read through the slot ids), device time a call",
+             shape=f"kodim01 bin-once slot ids {tuple(prep_trim.ids.shape)}, {members_a} members"),
         dict(name="chunk_list_forward", route="cuda",
              source="gaussianimage_plus_tpu_torch/csrc/chunk_list_forward.cu",
              replaces="gaussianimage_plus_tpu/kernels/raster_list_pallas.py:252 "
@@ -1369,7 +1415,7 @@ def run() -> None:
              ms=times["kernel D, binned fit state"], device_ms=device_ms["kernel D, binned fit state"],
              plain_ms=times["plain D, binned fit state"],
              bound_ms=bound_d, bound_by=by_d, library_ms=None,
-             shape=f"binned fit state after growth, table {tuple(raw_d.shape)}, {members_d} live "
+             shape=f"binned fit state after growth, slot ids {tuple(ids_d.shape)}, {members_d} live "
                    f"slots, {bbox_d.shape[0]} Gaussians, {passing_d} of {on_image_d} (slot, "
                    f"pixel) pairs pass the gate"),
         dict(name="tile_bin", route="cuda",

@@ -126,8 +126,9 @@ def decompress_wo_ec(bundle: QuantizerBundle, enc: Encoding, bound: torch.Tensor
 
 def prepare_decode(bundle: QuantizerBundle, enc: Encoding, bound: torch.Tensor,
                    cfg: GaussianConfig, qcfg: QuantConfig, trim: bool = True):
-    """Bin-once decode: dequantize + project + bin + gather, once per stream.
-    With ``trim`` the per-tile capacity is cut to the largest occupancy,
+    """Bin-once decode: dequantize + project + bin, once per stream, into a
+    ``Prepared`` attribute table and slot ids. With ``trim`` the per-tile
+    capacity (the slot ids' columns) is cut to the largest occupancy,
     rounded up to 8 — exact, since slots are front-packed."""
     state, over = _decoded_state(bundle, enc, bound, qcfg)
     cap = min(qcfg.decode_cap if qcfg.decode_cap > 0 else cfg.tile_cap, cfg.tile_cap)
@@ -135,8 +136,8 @@ def prepare_decode(bundle: QuantizerBundle, enc: Encoding, bound: torch.Tensor,
     if trim:
         maxc = int(prep.counts.max())
         cap2 = max(8, -(-maxc // 8) * 8)
-        if cap2 < prep.raw.shape[1]:
-            prep = prep._replace(raw=prep.raw[:, :cap2].contiguous())
+        if cap2 < prep.ids.shape[1]:
+            prep = prep._replace(ids=prep.ids[:, :cap2].contiguous())
     return prep
 
 

@@ -4,8 +4,9 @@ Port of ``gaussianimage_plus_tpu/core/render_tiled.py`` (``rasterize_tiled``
 with its hand-written VJP ``_rasterize_bwd`` and ``scatter_tile_grads``,
 ``_tiles_to_image``, ``_image_to_tiles``): the JAX ``'xla'`` backend. It is
 also the plain version of the port's binned kernel (``kernels/raster_binned.py``,
-kernel A): both evaluate the same per-tile blend over a pre-gathered
-``[T, K, 16]`` attribute table, in the same arithmetic; and its per-(tile,
+kernel A): both evaluate the same per-tile blend in the same arithmetic,
+this one over the gathered ``[T, K, 16]`` table, the kernel through the
+slot ids; and its per-(tile,
 slot) gradient payload (``tile_grads``) is the plain version of the
 chunk-list backward kernel (``kernels/raster_list.py``, kernel C).
 

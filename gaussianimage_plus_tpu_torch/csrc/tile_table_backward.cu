@@ -3,7 +3,8 @@
 // Replaces, in the JAX package's VJP of rasterize_pallas
 // (gaussianimage_plus_tpu/kernels/raster_pallas.py _rp_bwd :405-465):
 //   _run_bwd / _make_bwd_kernel (:241-261, body :151-204), TPU kernel #2: the
-//     per-(tile, slot) gradient payload over the gathered [T, K, 16] table;
+//     per-(tile, slot) gradient payload over the gathered [T, K, 16] table
+//     (here read through the slot ids from the [N+1, 16] attribute table);
 //   the occupancy-tiered 9-channel scatter-add (:426-440) and the inverse-map
 //     _gather_grads (:364-402): the per-Gaussian sum of that payload.
 // Per (tile t, slot s < counts[t]) it sums over the tile's pixels, where the
@@ -23,7 +24,8 @@
 //   stage 0, one block: start[t], the exclusive sum of the clamped counts,
 //     which numbers the live (tile, slot) pairs tile-major.
 //   stage 1, a persistent grid walking those numbers 32 live slots at a
-//     time (a binary search in start finds a slot's tile):
+//     time (a binary search in start finds a slot's tile; the slot's row is
+//     table[ids[t, s]], the same L2-resident rows kernel A reads):
 //     8 threads per slot, thread j summing the pixels j, j + 8, ... (32, in
 //     a fixed order, unrolled for independent work in flight); the ten
 //     partials of a slot's 8 threads meet in a fixed 3-step butterfly of
@@ -129,11 +131,12 @@ slot_start_kernel(const int* __restrict__ counts, int* __restrict__ start, int T
 }
 
 __global__ void __launch_bounds__(kThreads, 4)
-tile_payload_kernel(const float* __restrict__ raw,
+tile_payload_kernel(const float* __restrict__ table,
+                    const int* __restrict__ ids,
                     const int* __restrict__ start,
                     const float* __restrict__ v_img,
                     float* __restrict__ payload,
-                    int T, int K, int tb_x, int H, int W) {
+                    int T, int N, int K, int tb_x, int H, int W) {
   const int n_items = start[T];
   const int ls = threadIdx.x / kSlotThreads, sub = threadIdx.x % kSlotThreads;
   const float thresh = 1.0f / 255.0f;
@@ -159,7 +162,9 @@ tile_payload_kernel(const float* __restrict__ raw,
       const int tx = t % tb_x, ty = t / tb_x;
       const float tx0 = static_cast<float>(tx * kBlock);
       const float ty0 = static_cast<float>(ty * kBlock);
-      const float4* row = reinterpret_cast<const float4*>(raw + flat * kCols);
+      int id = ids[flat];
+      id = static_cast<unsigned>(id) > static_cast<unsigned>(N) ? N : id;   // else the sentinel
+      const float4* row = reinterpret_cast<const float4*>(table + static_cast<size_t>(id) * kCols);
       const float4 a = row[0];   // c1 c2 c3 mx
       const float4 b = row[1];   // my r g b
       const float4 o = row[2];   // opac ...
@@ -308,7 +313,7 @@ cudaError_t resident_blocks(int* blocks) {
 
 }  // namespace
 
-extern "C" int tile_table_backward(const float* raw, const int* counts, const int* ids,
+extern "C" int tile_table_backward(const float* table, const int* counts, const int* ids,
                                    const int* bbox, const float* v_img, float* payload,
                                    int* start, float* out, int T, int K, int N, int tb_x,
                                    int tb_y, int H, int W, void* stream) {
@@ -320,8 +325,8 @@ extern "C" int tile_table_backward(const float* raw, const int* counts, const in
     int resident = 0;
     if ((err = resident_blocks(&resident)) != cudaSuccess) return static_cast<int>(err);
     const int blocks = min(resident, (T * K + kSlotsPerBlock - 1) / kSlotsPerBlock);
-    tile_payload_kernel<<<blocks, kThreads, 0, st>>>(raw, start, v_img, payload, T, K, tb_x,
-                                                      H, W);
+    tile_payload_kernel<<<blocks, kThreads, 0, st>>>(table, ids, start, v_img, payload, T, N,
+                                                      K, tb_x, H, W);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

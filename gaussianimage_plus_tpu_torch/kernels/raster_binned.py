@@ -1,4 +1,4 @@
-"""Binned, capped rasterizer over a pre-gathered tile table, and its backward.
+"""Binned, capped rasterizer over the attribute table and the slot ids, and its backward.
 
 Port of ``gaussianimage_plus_tpu/kernels/raster_pallas.py`` (``_build_table``,
 ``_prepare``, ``Prepared``, ``prepare_raster``, ``rasterize_prepared``, the
@@ -21,12 +21,18 @@ port's ``GaussianConfig`` has no ``grad_gather_tiles`` field. The gather
 relies, as ``_gather_grads`` does, on each tile's ids being ascending and
 front-packed, which every binning method produces.
 
-Data layout, as in the JAX package: one attribute table ``[N+1, 16]`` with
-rows ``[c1, c2, c3, mx, my, r, g, b, opac, 0.., valid=1]`` and an all-zero
-sentinel row N; ``raw = table[ids]`` ``[T, K, 16]`` with empty slots pointing
-at the sentinel. A tile's members are front-packed, so only its first
-``counts[t]`` rows are read, and the same kernel serves the untrimmed binned
-table and the trimmed bin-once table.
+Data layout: one attribute table ``[N+1, 16]`` with rows ``[c1, c2, c3, mx,
+my, r, g, b, opac, 0.., valid=1]`` and an all-zero sentinel row N, and the
+int32 slot ids ``[T, K]`` (a tile's members, then the sentinel N). A tile's
+members are front-packed, so only its first ``counts[t]`` slots are read,
+and the same kernel serves the untrimmed binned table and the trimmed
+bin-once table.
+
+Deviation, on purpose (see ``Prepared``): the JAX package gathers ``raw =
+table[ids]`` ``[T, K, 16]`` before its kernels; kernels A and D read the
+attribute table (a few hundred KB, resident in the card's L2) through the
+slot ids instead, so that table, 25 MB at 768x512 and 176 MB at 2040x1344,
+is never built on the card. ``_gather`` builds it for the plain versions.
 """
 
 from __future__ import annotations
@@ -64,9 +70,9 @@ def _padded_k(K: int) -> int:
 
 
 def _slot_ids(ids, mask, N: int) -> torch.Tensor:
-    """[T, Kp] int64 table rows of the slots: the member ids, the sentinel N
+    """[T, Kp] int32 table rows of the slots: the member ids, the sentinel N
     past them, padded to the slot-list alignment."""
-    ids_s = torch.where(mask, ids.to(torch.int64), torch.full_like(ids, N, dtype=torch.int64))
+    ids_s = torch.where(mask, ids.to(torch.int32), torch.full_like(ids, N, dtype=torch.int32))
     K = ids.shape[1]
     Kp = _padded_k(K)
     if Kp != K:
@@ -74,73 +80,98 @@ def _slot_ids(ids, mask, N: int) -> torch.Tensor:
     return ids_s
 
 
-def _gather(xys, conics, colors, opacity, ids, mask):
-    """Gather the table into per-tile blocks: (raw [T, Kp, 16], counts [T],
-    the slot ids [T, Kp] int64 it was gathered by)."""
-    ids_s = _slot_ids(ids, mask, xys.shape[0])
-    raw = _build_table(xys, conics, colors, opacity)[ids_s]
-    return raw, mask.sum(dim=1, dtype=torch.int32), ids_s
+def _slot_table(xys, conics, colors, opacity, ids, mask):
+    """The kernels' inputs: (table [N+1, 16], slot ids [T, Kp] int32,
+    counts [T] int32)."""
+    return (_build_table(xys, conics, colors, opacity), _slot_ids(ids, mask, xys.shape[0]),
+            mask.sum(dim=1, dtype=torch.int32))
+
+
+def _gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The plain versions' per-tile blocks ``table[ids]`` [T, K, 16]; a slot
+    id outside [0, N] reads the sentinel row N, as in the kernels."""
+    N = table.shape[0] - 1
+    ids = ids.to(torch.int64)
+    return table[torch.where((ids < 0) | (ids > N), N, ids)]
 
 
 def _prepare(xys, conics, colors, opacity, ids, mask):
-    """Gather the table into per-tile blocks: (raw [T, Kp, 16], counts [T])."""
-    return _gather(xys, conics, colors, opacity, ids, mask)[:2]
+    """Gather the table into per-tile blocks for the plain path: (raw
+    [T, Kp, 16], counts [T])."""
+    table, ids_s, counts = _slot_table(xys, conics, colors, opacity, ids, mask)
+    return _gather(table, ids_s), counts
 
 
 class Prepared(NamedTuple):
-    """A binned and gathered render input: the decode fast path renders a
-    static stream from it with no per-frame binning (see the JAX
-    ``raster_pallas.Prepared``)."""
+    """A binned render input: the decode fast path renders a static stream
+    from it with no per-frame binning (see the JAX
+    ``raster_pallas.Prepared``).
 
-    raw: torch.Tensor     # [T, Kp, COLS]
+    Deviation, on purpose: the JAX ``Prepared`` holds the gathered blocks
+    ``raw = table[ids]`` [T, Kp, 16] and ``counts``. This one holds the
+    attribute table and the slot ids instead, which kernel A reads through;
+    ``_gather(table, ids)`` is the JAX ``raw``. Trimming the capacity cuts
+    ``ids``."""
+
+    table: torch.Tensor   # [N+1, COLS]
+    ids: torch.Tensor     # [T, Kp] int32
     counts: torch.Tensor  # [T] int32
 
 
 def prepare_raster(xys, conics, colors, opacity, ids, mask, H, W,
                    block_h: int = BLOCK_H, block_w: int = BLOCK_W) -> Prepared:
-    """Bin-once stage: gather attributes into per-tile blocks (the tile
-    grid is the rows of ``ids``; ``H``, ``W`` and the block size keep the
-    JAX signature)."""
-    return Prepared(*_prepare(xys, conics, colors, opacity, ids, mask))
+    """Bin-once stage: the attribute table and the slot ids (the tile grid
+    is the rows of ``ids``; ``H``, ``W`` and the block size keep the JAX
+    signature)."""
+    return Prepared(*_slot_table(xys, conics, colors, opacity, ids, mask))
 
 
-def tile_table_forward_plain(raw: torch.Tensor, counts: torch.Tensor,
+def _check_table(table: torch.Tensor, ids: torch.Tensor, counts: torch.Tensor, T: int) -> None:
+    if table.dim() != 2 or table.shape[0] < 1 or table.shape[1] != COLS:
+        raise ValueError(f"table must be [N+1, {COLS}], got {tuple(table.shape)}")
+    if ids.dim() != 2 or ids.shape[0] != T:
+        raise ValueError(f"ids must be [{T}, K], got {tuple(ids.shape)}")
+    if counts.shape != (T,):
+        raise ValueError(f"counts must be [{T}], got {tuple(counts.shape)}")
+    if table.dtype != torch.float32 or ids.dtype != torch.int32 or counts.dtype != torch.int32:
+        raise TypeError("table must be float32, ids and counts int32")
+
+
+def tile_table_forward_plain(table: torch.Tensor, ids: torch.Tensor, counts: torch.Tensor,
                              H: int, W: int) -> torch.Tensor:
-    """Plain PyTorch version of kernel A: the same function, same
-    arithmetic for ``sigma`` (``core/render_tiled.py``)."""
-    return render_table(raw, counts, H, W, BLOCK_H, BLOCK_W)
+    """Plain PyTorch version of kernel A: gather, then the same function in
+    the same arithmetic for ``sigma`` (``core/render_tiled.py``)."""
+    return render_table(_gather(table, ids), counts, H, W, BLOCK_H, BLOCK_W)
 
 
 def _setup(lib):
     lib.tile_table_forward.restype = ctypes.c_int
-    lib.tile_table_forward.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.tile_table_forward.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
-def tile_table_forward(raw: torch.Tensor, counts: torch.Tensor,
+def tile_table_forward(table: torch.Tensor, ids: torch.Tensor, counts: torch.Tensor,
                        H: int, W: int) -> torch.Tensor:
-    """Kernel A: [T, K, 16] table + counts [T] -> unclamped [H, W, 3].
+    """Kernel A: the attribute table [N+1, 16], the slot ids [T, K] int32
+    and counts [T] -> unclamped [H, W, 3].
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (built at first use) or raises."""
     tb_x, tb_y = tile_bounds_for(H, W, BLOCK_H, BLOCK_W)
-    if raw.dim() != 3 or raw.shape[0] != tb_x * tb_y or raw.shape[2] != COLS:
-        raise ValueError(f"raw must be [{tb_x * tb_y}, K, {COLS}], got {tuple(raw.shape)}")
-    if counts.shape != (raw.shape[0],):
-        raise ValueError(f"counts must be [{raw.shape[0]}], got {tuple(counts.shape)}")
-    if raw.dtype != torch.float32 or counts.dtype != torch.int32:
-        raise TypeError("raw must be float32 and counts int32")
-    if raw.device != counts.device:
-        raise ValueError("raw and counts must be on one device")
-    if raw.device.type == "cpu":
-        return tile_table_forward_plain(raw, counts, H, W)
-    if raw.device.type != "cuda":
-        raise ValueError(f"unsupported device {raw.device}")
-    if not (raw.is_contiguous() and counts.is_contiguous()):
-        raise ValueError("raw and counts must be contiguous")
+    _check_table(table, ids, counts, tb_x * tb_y)
+    dev = table.device
+    if ids.device != dev or counts.device != dev:
+        raise ValueError("table, ids and counts must be on one device")
+    if dev.type == "cpu":
+        return tile_table_forward_plain(table, ids, counts, H, W)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not (table.is_contiguous() and ids.is_contiguous() and counts.is_contiguous()):
+        raise ValueError("table, ids and counts must be contiguous")
     lib = _build.load("tile_table_forward", _setup)
-    out = torch.empty((H, W, 3), dtype=torch.float32, device=raw.device)
-    rc = _build.launch(raw.device, lib.tile_table_forward, raw.data_ptr(), counts.data_ptr(),
-                       out.data_ptr(), raw.shape[0], raw.shape[1], tb_x, H, W)
+    out = torch.empty((H, W, 3), dtype=torch.float32, device=dev)
+    T, K = ids.shape
+    rc = _build.launch(dev, lib.tile_table_forward, table.data_ptr(), ids.data_ptr(),
+                       counts.data_ptr(), out.data_ptr(), T, table.shape[0] - 1, K, tb_x, H, W)
     _build.check(rc, "tile_table_forward")
     tile_table_forward.launches += 1
     return out
@@ -151,27 +182,27 @@ tile_table_forward.launches = 0
 
 def rasterize_prepared(prep: Prepared, H: int, W: int) -> torch.Tensor:
     """Forward-only render from a prepared table -> unclamped [H, W, 3]."""
-    return tile_table_forward(prep.raw, prep.counts, H, W)
+    return tile_table_forward(prep.table, prep.ids, prep.counts, H, W)
 
 
 def rasterize_prepared_flat(prep: Prepared, H: int, W: int) -> torch.Tensor:
     """The bin-once decode render (``decode_frame``). The JAX package's flat
     kernel exists to avoid TPU predication; it computes the function of
     ``rasterize_prepared``, and so runs the same kernel here."""
-    return tile_table_forward(prep.raw, prep.counts, H, W)
+    return tile_table_forward(prep.table, prep.ids, prep.counts, H, W)
 
 
-def tile_table_backward_plain(raw: torch.Tensor, counts: torch.Tensor, ids: torch.Tensor,
+def tile_table_backward_plain(table: torch.Tensor, counts: torch.Tensor, ids: torch.Tensor,
                               bbox: torch.Tensor, v_img: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of kernel D: the per-(tile, slot) payload of
-    ``core/render_tiled.tile_payload`` (the gate in the forward's float64
-    emulation of the fused-multiply-add chain), summed per Gaussian by a
-    deterministic scatter over the live slots (the JAX default). It takes
-    the kernel's arguments, so that either serves the wrapper; of ``bbox``,
-    which bounds the kernel's walk, it reads only the row count N. Returns
-    [N, 9]."""
+    ``core/render_tiled.tile_payload`` over the gathered table (the gate in
+    the forward's float64 emulation of the fused-multiply-add chain), summed
+    per Gaussian by a deterministic scatter over the live slots (the JAX
+    default). It takes the kernel's arguments, so that either serves the
+    wrapper; of ``bbox``, which bounds the kernel's walk, it reads only the
+    row count N. Returns [N, 9]."""
     N = bbox.shape[0]
-    return tile_grads(raw, ids.to(torch.int64), counts, v_img, N + 1)[:N]
+    return tile_grads(_gather(table, ids), ids.to(torch.int64), counts, v_img, N + 1)[:N]
 
 
 def _setup_bwd(lib):
@@ -180,10 +211,10 @@ def _setup_bwd(lib):
                                         + [ctypes.c_void_p])
 
 
-def tile_table_backward(raw: torch.Tensor, counts: torch.Tensor, ids: torch.Tensor,
+def tile_table_backward(table: torch.Tensor, counts: torch.Tensor, ids: torch.Tensor,
                         bbox: torch.Tensor, v_img: torch.Tensor) -> torch.Tensor:
-    """Kernel D: the gathered table raw [T, K, 16] and counts [T] that kernel
-    A read, the slot ids [T, K] int32 (ascending members, front-packed), the
+    """Kernel D: the attribute table [N+1, 16], counts [T] and slot ids
+    [T, K] int32 (ascending members, front-packed) that kernel A read, the
     int32 tile bboxes [N, 4] ``(xmin, xmax, ymin, ymax)`` of the N Gaussians
     and the cotangent image v_img [H, W, 3] -> per-Gaussian gradient payload
     [N, 9] = ``[v_xy(2), v_conic(3, half off-diagonal), v_rgb(3), v_opac]``.
@@ -193,26 +224,22 @@ def tile_table_backward(raw: torch.Tensor, counts: torch.Tensor, ids: torch.Tens
         raise ValueError(f"v_img must be [H, W, 3], got {tuple(v_img.shape)}")
     H, W, _ = v_img.shape
     tb_x, tb_y = tile_bounds_for(H, W, BLOCK_H, BLOCK_W)
-    if raw.dim() != 3 or raw.shape[0] != tb_x * tb_y or raw.shape[2] != COLS:
-        raise ValueError(f"raw must be [{tb_x * tb_y}, K, {COLS}], got {tuple(raw.shape)}")
-    T, K, _ = raw.shape
-    if counts.shape != (T,) or ids.shape != (T, K):
-        raise ValueError(f"counts must be [{T}] and ids [{T}, {K}], got "
-                         f"{tuple(counts.shape)} and {tuple(ids.shape)}")
-    if bbox.dim() != 2 or bbox.shape[1] != 4:
-        raise ValueError(f"bbox must be [N, 4], got {tuple(bbox.shape)}")
-    if raw.dtype != torch.float32 or v_img.dtype != torch.float32:
-        raise TypeError("raw and v_img must be float32")
-    if any(a.dtype != torch.int32 for a in (counts, ids, bbox)):
-        raise TypeError("counts, ids and bbox must be int32")
-    dev = raw.device
+    T = tb_x * tb_y
+    _check_table(table, ids, counts, T)
+    K = ids.shape[1]
+    if bbox.dim() != 2 or bbox.shape[1] != 4 or table.shape[0] != bbox.shape[0] + 1:
+        raise ValueError(f"bbox must be [N, 4] for a table of N+1 rows, got "
+                         f"{tuple(bbox.shape)} and {tuple(table.shape)}")
+    if v_img.dtype != torch.float32 or bbox.dtype != torch.int32:
+        raise TypeError("v_img must be float32 and bbox int32")
+    dev = table.device
     if any(a.device != dev for a in (counts, ids, bbox, v_img)):
         raise ValueError("all inputs must be on one device")
     if dev.type == "cpu":
-        return tile_table_backward_plain(raw, counts, ids, bbox, v_img)
+        return tile_table_backward_plain(table, counts, ids, bbox, v_img)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if not all(a.is_contiguous() for a in (raw, counts, ids, bbox, v_img)):
+    if not all(a.is_contiguous() for a in (table, counts, ids, bbox, v_img)):
         raise ValueError("inputs must be contiguous")
     N = bbox.shape[0]
     lib = _build.load("tile_table_backward", _setup_bwd)
@@ -222,7 +249,7 @@ def tile_table_backward(raw: torch.Tensor, counts: torch.Tensor, ids: torch.Tens
     payload = scratch.data_ptr()
     start = payload + T * K * 9 * scratch.element_size()
     out = torch.empty((N, 9), dtype=torch.float32, device=dev)
-    rc = _build.launch(dev, lib.tile_table_backward, raw.data_ptr(), counts.data_ptr(),
+    rc = _build.launch(dev, lib.tile_table_backward, table.data_ptr(), counts.data_ptr(),
                        ids.data_ptr(), bbox.data_ptr(), v_img.data_ptr(), payload, start,
                        out.data_ptr(), T, K, N, tb_x, tb_y, H, W)
     _build.check(rc, "tile_table_backward")
@@ -234,31 +261,32 @@ tile_table_backward.launches = 0
 
 
 class _RasterizeBinned(torch.autograd.Function):
-    """Kernel A forward, kernel D backward on the gathered table, counts and
-    slot ids the forward built; gradients reach the centres, conics, colours
-    and opacities."""
+    """Kernel A forward, kernel D backward on the attribute table, slot ids
+    and counts the forward built; gradients reach the centres, conics,
+    colours and opacities."""
 
     @staticmethod
     def forward(ctx, xys, conics, colors, opacity, ids, mask, radii, H, W):
-        raw, counts, ids_s = _gather(xys, conics, colors, opacity, ids, mask)
+        table, ids_s, counts = _slot_table(xys, conics, colors, opacity, ids, mask)
         if any(ctx.needs_input_grad[:4]):
-            ctx.save_for_backward(raw, counts, ids_s.to(torch.int32).contiguous(),
+            ctx.save_for_backward(table, counts, ids_s,
                                   tile_bbox_table(xys, radii, tile_bounds_for(H, W)))
             ctx.opacity_shape = opacity.shape
-        return tile_table_forward(raw, counts, H, W)
+        return tile_table_forward(table, ids_s, counts, H, W)
 
     @staticmethod
     def backward(ctx, v_img):
-        raw, counts, ids_s, bbox = ctx.saved_tensors
-        acc = tile_table_backward(raw, counts, ids_s, bbox, v_img.contiguous())
+        table, counts, ids_s, bbox = ctx.saved_tensors
+        acc = tile_table_backward(table, counts, ids_s, bbox, v_img.contiguous())
         return (acc[:, 0:2], acc[:, 2:5], acc[:, 5:8], acc[:, 8].reshape(ctx.opacity_shape),
                 None, None, None, None, None)
 
 
 def rasterize_binned(xys, conics, colors, opacity, ids, mask, radii, H: int, W: int,
                      block_h: int = BLOCK_H, block_w: int = BLOCK_W) -> torch.Tensor:
-    """The JAX ``rasterize_pallas``: gather + kernel A forward, kernel D
-    backward -> unclamped [H, W, 3]. ``radii`` [N] are the projected radii
-    that binned ``ids`` (kernel D walks their tile bboxes); differentiable
-    in ``xys``, ``conics``, ``colors`` and ``opacity``."""
+    """The JAX ``rasterize_pallas``: kernel A forward, kernel D backward,
+    both reading the attribute table through the slot ids -> unclamped
+    [H, W, 3]. ``radii`` [N] are the projected radii that binned ``ids``
+    (kernel D walks their tile bboxes); differentiable in ``xys``,
+    ``conics``, ``colors`` and ``opacity``."""
     return _RasterizeBinned.apply(xys, conics, colors, opacity, ids, mask, radii, H, W)

@@ -46,7 +46,8 @@ from ..core.gaussian2d import (BLOCK_H, BLOCK_W, Projected, check_kernel_tiles,
                                scale_rot_to_cov2d, slv_bound, tile_bounds_for)
 from ..core.render_tiled import rasterize_tiled, render_table
 from ..kernels.binning_tiles import bin_gaussians_tiles
-from ..kernels.raster_binned import prepare_raster, rasterize_binned, rasterize_prepared_flat
+from ..kernels.raster_binned import (_gather, prepare_raster, rasterize_binned,
+                                      rasterize_prepared_flat)
 from ..kernels.raster_dense import (rasterize_dense, rasterize_dense_pallas,
                                     rasterize_range_pallas, rasterize_sweep,
                                     rasterize_sweep_pallas)
@@ -237,8 +238,8 @@ def prepare_render(state: GaussianState, cfg: GaussianConfig,
                    means_override: Optional[torch.Tensor] = None,
                    colors_override: Optional[torch.Tensor] = None,
                    cap: Optional[int] = None):
-    """Bin-once stage of the decode fast path: project + bin + gather into
-    a ``kernels.raster_binned.Prepared`` table. ``bin_method='pallas'``
+    """Bin-once stage of the decode fast path: project + bin into a
+    ``kernels.raster_binned.Prepared`` attribute table and slot ids. ``bin_method='pallas'``
     bins with ``'top_k'`` here (the same bins), as in the JAX package."""
     proj, colors, opacity = _inputs(state, cfg, cov_override, means_override,
                                     colors_override)
@@ -255,10 +256,11 @@ def render_prepared(prep, cfg: GaussianConfig) -> torch.Tensor:
     its flat kernel), else the plain blend of the ``'xla'`` path."""
     if (cfg.block_h, cfg.block_w) == (BLOCK_H, BLOCK_W):
         return _clip01(rasterize_prepared_flat(prep, cfg.H, cfg.W))
-    backend = resolve_backend(cfg, prep.raw.device)
+    backend = resolve_backend(cfg, prep.table.device)
     if backend in _KERNEL_BACKENDS:
         check_kernel_tiles(cfg.block_h, cfg.block_w, f"raster_backend={backend!r}")
-    return _clip01(render_table(prep.raw, prep.counts, cfg.H, cfg.W, cfg.block_h, cfg.block_w))
+    return _clip01(render_table(_gather(prep.table, prep.ids), prep.counts, cfg.H, cfg.W,
+                                cfg.block_h, cfg.block_w))
 
 
 def render_fast(state: GaussianState, cfg: GaussianConfig,

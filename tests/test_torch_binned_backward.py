@@ -121,11 +121,10 @@ def test_tile_table_backward_plain_sums_the_slot_payload():
     pj, pt, bj, bt, colors, opacity, v_img, H, W = _binned_case(**CASES["odd-grid"])
     col_t, op_t = torch.as_tensor(colors), torch.as_tensor(opacity)
     N = pt.xys.shape[0]
-    ids_s = raster_binned._slot_ids(bt.ids, bt.mask, N)
-    raw, counts = raster_binned._prepare(pt.xys, pt.conics, col_t, op_t, bt.ids, bt.mask)
+    table, ids_s, counts = raster_binned._slot_table(pt.xys, pt.conics, col_t, op_t, bt.ids,
+                                                     bt.mask)
     bbox = raster_binned.tile_bbox_table(pt.xys, pt.radii, (5, 3))
-    out = raster_binned.tile_table_backward(raw, counts, ids_s.to(torch.int32), bbox,
-                                            torch.as_tensor(v_img))
+    out = raster_binned.tile_table_backward(table, counts, ids_s, bbox, torch.as_tensor(v_img))
     assert out.shape == (N, 9)
     leaves = [t.detach().clone().requires_grad_(True) for t in (pt.xys, pt.conics, col_t, op_t)]
     raster_binned.rasterize_binned(*leaves, bt.ids, bt.mask, pt.radii, H, W).backward(
@@ -133,7 +132,41 @@ def test_tile_table_backward_plain_sums_the_slot_payload():
     grads = torch.cat([leaves[0].grad, leaves[1].grad, leaves[2].grad, leaves[3].grad[:, None]], 1)
     assert torch.equal(out, grads)
     with pytest.raises(TypeError):
-        raster_binned.tile_table_backward(raw, counts, ids_s, bbox, torch.as_tensor(v_img))
+        raster_binned.tile_table_backward(table, counts, ids_s.to(torch.int64), bbox,
+                                          torch.as_tensor(v_img))
+
+
+def test_binned_function_saves_the_table_not_a_gathered_one():
+    """The binned Function keeps the [N+1, 16] attribute table and the int32
+    slot ids for kernel D, and no [T, K, 16] table."""
+    pj, pt, bj, bt, colors, opacity, v_img, H, W = _binned_case(**CASES["id-order"])
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (pt.xys, pt.conics, torch.as_tensor(colors), torch.as_tensor(opacity))]
+    img = raster_binned.rasterize_binned(*leaves, bt.ids, bt.mask, pt.radii, H, W)
+    table, counts, ids_s, bbox = img.grad_fn.saved_tensors
+    N = pt.xys.shape[0]
+    assert table.shape == (N + 1, 16) and bbox.shape == (N, 4)
+    assert ids_s.dtype == torch.int32 and ids_s.shape[0] == counts.shape[0] == bt.ids.shape[0]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_tile_table_backward_plain_on_the_table_matches_jax_vjp(case):
+    """Kernel D's plain version, called as the kernel is (the [N+1, 16]
+    attribute table, the int32 slot ids, the counts, the tile bboxes), against
+    the JAX binned VJP (the scatter-add, ``gather_tiles`` 0)."""
+    pj, pt, bj, bt, colors, opacity, v_img, H, W = _binned_case(**CASES[case])
+    _, vjp = jax.vjp(
+        lambda a, b, c, d: jax_rasterize_pallas(a, b, c, d, bj.ids, bj.mask, pj.radii, H, W),
+        pj.xys, pj.conics, jnp.asarray(colors), jnp.asarray(opacity))
+    ref = vjp(jnp.asarray(v_img))
+    table, ids_s, counts = raster_binned._slot_table(
+        pt.xys, pt.conics, torch.as_tensor(colors), torch.as_tensor(opacity), bt.ids, bt.mask)
+    assert table.shape == (pt.xys.shape[0] + 1, 16) and ids_s.dtype == torch.int32
+    bbox = raster_binned.tile_bbox_table(pt.xys, pt.radii, (-(-W // 16), -(-H // 16)))
+    acc = raster_binned.tile_table_backward_plain(table, counts, ids_s, bbox,
+                                                  torch.as_tensor(v_img))
+    assert_grads_close([acc[:, 0:2], acc[:, 2:5], acc[:, 5:8], acc[:, 8]], ref,
+                       f"kernel D plain {case}")
 
 
 @pytest.mark.parametrize("bin_method", ["top_k", "pallas"])

@@ -42,6 +42,7 @@ from gaussianimage_plus_tpu_torch.compress.pipeline import (_decode_attributes, 
                                                             morton_reorder, prepare_decode)
 from gaussianimage_plus_tpu_torch.core.binning import bin_gaussians
 from gaussianimage_plus_tpu_torch.interop import config_from_numpy, state_from_numpy
+from gaussianimage_plus_tpu_torch.kernels.raster_binned import _gather
 from gaussianimage_plus_tpu_torch.models import gaussian_image as tgi
 
 from test_torch_raster import assert_render_close, sigma_error_bound
@@ -100,19 +101,38 @@ def test_prepare_decode_and_frame_match_jax():
     prep_j = jgi.prepare_render(state_j, cfg_j, cov_override=cov, means_override=means,
                                 colors_override=colors)
     kmax = int(np.asarray(prep_j.counts).max())
-    assert prep.raw.shape[1] == max(8, -(-kmax // 8) * 8)     # the trimmed cap
+    assert prep.ids.shape[1] == max(8, -(-kmax // 8) * 8)     # the trimmed cap
     np.testing.assert_array_equal(prep.counts.numpy(), np.asarray(prep_j.counts))
-    np.testing.assert_allclose(prep.raw.numpy(), np.asarray(prep_j.raw)[:, :prep.raw.shape[1]],
+    # the rows the port's Prepared names through its slot ids, against JAX's gathered table
+    raw = _gather(prep.table, prep.ids)
+    np.testing.assert_allclose(raw.numpy(), np.asarray(prep_j.raw)[:, :prep.ids.shape[1]],
                                rtol=1e-6, atol=0)
     # JAX's jitted prepare_decode trims to the same cap
     assert tuple(jax_prepare_decode(dj.bundle, dj.enc, dj.bound, cfg_j, dj.qcfg).raw.shape) \
-        == tuple(prep.raw.shape)
+        == tuple(raw.shape)
     frame = decode_frame(prep, cfg)
     assert_render_close(frame, ref, bound=_stream_bound(dec, cfg), max_frac=MAX_FRAC,
                         what="decode_frame")
     # untrimmed and trimmed tables render identically
     full = prepare_decode(dec.bundle, dec.enc, dec.bound, cfg, dec.qcfg, trim=False)
-    assert full.raw.shape[1] == 256 and torch.equal(decode_frame(full, cfg), frame)
+    assert full.ids.shape[1] == 256 and torch.equal(decode_frame(full, cfg), frame)
+
+
+def test_trimmed_prepared_decodes_the_untrimmed_frame():
+    """``prepare_decode``'s trim cuts the slot ids to the fullest tile's
+    occupancy (rounded up to 8) and keeps the attribute table: the trimmed
+    and untrimmed ``Prepared`` name the same live rows and decode to the
+    same frame (a VQ-colour stream)."""
+    _, dec = decode_bitstream(open(VQ, "rb").read(), device="cpu")
+    cfg = _cfg(dec)
+    full = prepare_decode(dec.bundle, dec.enc, dec.bound, cfg, dec.qcfg, trim=False)
+    trim = prepare_decode(dec.bundle, dec.enc, dec.bound, cfg, dec.qcfg)
+    cap2 = trim.ids.shape[1]
+    assert cap2 == max(8, -(-int(full.counts.max()) // 8) * 8) < full.ids.shape[1]
+    assert torch.equal(trim.table, full.table) and torch.equal(trim.counts, full.counts)
+    assert torch.equal(trim.ids, full.ids[:, :cap2]) and trim.ids.is_contiguous()
+    assert bool((full.ids[:, cap2:] == full.table.shape[0] - 1).all())   # only sentinels cut
+    assert torch.equal(decode_frame(trim, cfg), decode_frame(full, cfg))
 
 
 def test_morton_reordered_stream_renders_the_same():

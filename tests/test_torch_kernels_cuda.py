@@ -10,15 +10,20 @@ JAX, so it also runs on a machine with PyTorch alone::
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
 
-Tolerance atol 2e-5, rtol 1e-5 at every pixel but at most 0.01% of them: the
-kernels and their plain versions evaluate sigma in the same fused-multiply-add
-order, and differ only where an ``exp`` or the colour sums round across the
-sigma >= 0 or alpha >= 1/255 gate. Kernel C: per payload column, max
+Kernel A must equal its plain version, run on the card, bit for bit: both
+evaluate sigma in the same fused-multiply-add order and sum each pixel's rows
+in slot order. Kernel B: atol 2e-5, rtol 1e-5 at every pixel but at most
+0.01% of them (the plain version is run on the CPU, whose ``exp`` may round
+across the sigma >= 0 or alpha >= 1/255 gate). Kernel C: per payload column, max
 |kernel - plain| <= 1e-4 max |plain| (the gate is bit-equal; the sums over
 pixels and tiles run in another order), and two launches give the same bits.
 Kernel D: the same, per column of its [N, 9] output. Kernel E: ids and counts
 equal the plain version's exactly.
 
+Kernel A reads its tile's rows of the attribute table through the slot
+ids, 128 at a time, and gives a thread 2 pixels of one column; besides the
+shared scenes it runs on the binned fit state's shape (a tile of ~150 live
+slots among tiles of ~13), a tile at cap 256 and a 2040x1344 grid.
 Kernel B stages each tile's members into a shared list of 512 and blends it
 whenever the next batch of 256 visited rows might not fit. Kernel C gives a
 block 8 table rows and each of its warps an equal share of their (row, bbox
@@ -61,16 +66,17 @@ def card():
     return torch.device("cuda")
 
 
-def _scene(n, H, W, seed, crowd=0, spread=0.0, n_invalid=0, n_huge=0):
+def _scene(n, H, W, seed, crowd=0, spread=0.0, n_invalid=0, n_huge=0, cov_max=60.0):
     """``crowd`` centres at (12, 12) (spread uniformly over +- ``spread``),
     the last ``n_invalid`` rows with a non-invertible covariance (culled by
-    the projection), the next ``n_huge`` with a bbox over the whole grid."""
+    the projection), the next ``n_huge`` with a bbox over the whole grid;
+    variances drawn from [2, ``cov_max``]."""
     rng = np.random.default_rng(seed)
     xy = np.stack([rng.uniform(0, W, n), rng.uniform(0, H, n)], -1).astype(np.float32)
     xy[:crowd] = 12.0
     if spread:
         xy[:crowd] += rng.uniform(-spread, spread, (crowd, 2)).astype(np.float32)
-    a, c = rng.uniform(2.0, 60.0, n), rng.uniform(2.0, 60.0, n)
+    a, c = rng.uniform(2.0, cov_max, n), rng.uniform(2.0, cov_max, n)
     b = rng.uniform(-0.8, 0.8, n) * np.sqrt(a * c)
     cov = np.stack([a, b, c], -1).astype(np.float32)
     if n_invalid:
@@ -98,21 +104,39 @@ SCENES = {
 }
 
 
+# kernel A besides: the binned fit state's shape (small Gaussians, ~13 live
+# slots a tile, one tile of ~150), one tile at cap 256, and a 2040x1344 grid
+A_SCENES = {
+    **SCENES,
+    "fit-state shape": dict(n=4800, H=512, W=768, seed=20, cap=256, crowd=150, spread=7.5,
+                            cov_max=12.0),
+    "a tile at cap 256": dict(n=600, H=48, W=80, seed=21, cap=256, crowd=400, spread=3.5),
+    "2K-size grid": dict(n=20000, H=1344, W=2040, seed=22, cap=256, cov_max=12.0),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", list(SCENES))
+@pytest.mark.parametrize("case", list(A_SCENES))
 def test_tile_table_forward_matches_plain(card, case):
-    kw = dict(SCENES[case])
+    """Bit-equal to the plain version on the card: the same sigma chain and
+    each pixel's sums in slot order."""
+    kw = dict(A_SCENES[case])
     cap = kw.pop("cap")
     proj, colors, opacity = _scene(**kw)
     H, W = kw["H"], kw["W"]
     bins = bin_gaussians(proj, H, W, cap=cap)
-    raw, counts = raster_binned._prepare(proj.xys, proj.conics, colors, opacity,
-                                         bins.ids, bins.mask)
-    ref = raster_binned.tile_table_forward_plain(raw, counts, H, W)
+    table, ids, counts = (a.to(card) for a in raster_binned._slot_table(
+        proj.xys, proj.conics, colors, opacity, bins.ids, bins.mask))
+    if case == "a tile at cap 256":
+        assert int(counts.max()) == 256 == ids.shape[1]
+        assert int(bin_gaussians(proj, H, W, cap=1024).count.max()) > 256
+    ref = raster_binned.tile_table_forward_plain(table, ids, counts, H, W)
     before = raster_binned.tile_table_forward.launches
-    out = raster_binned.tile_table_forward(raw.to(card), counts.to(card), H, W)
+    out = raster_binned.tile_table_forward(table, ids, counts, H, W)
     assert raster_binned.tile_table_forward.launches == before + 1
-    _close(out, ref, f"kernel A {case}")
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref), (f"kernel A {case}: max |kernel - plain| "
+                                   f"{float((out - ref).abs().max()):.3g}")
 
 
 @pytest.mark.cuda
@@ -133,15 +157,15 @@ def test_chunk_list_forward_matches_plain(card, case, kc, lmax):
 
 @pytest.mark.cuda
 def test_wrappers_refuse_bad_card_inputs(card):
-    raw = torch.zeros((15, 8, 16), device=card)
+    table = torch.zeros((11, 16), device=card)
+    ids = torch.zeros((15, 8), dtype=torch.int32, device=card)
     counts = torch.zeros(15, dtype=torch.int32, device=card)
     with pytest.raises(ValueError):        # on two devices
-        raster_binned.tile_table_forward(raw, counts.cpu(), 48, 80)
+        raster_binned.tile_table_forward(table, ids, counts.cpu(), 48, 80)
     with pytest.raises(ValueError):        # not contiguous
-        raster_binned.tile_table_forward(raw.transpose(1, 2).contiguous().transpose(1, 2),
-                                         counts, 48, 80)
+        raster_binned.tile_table_forward(table, ids.t().contiguous().t(), counts, 48, 80)
     with pytest.raises(TypeError):
-        raster_binned.tile_table_forward(raw.double(), counts, 48, 80)
+        raster_binned.tile_table_forward(table.double(), ids, counts, 48, 80)
 
 
 def _payload_close(out, ref, what):
@@ -194,13 +218,12 @@ def _binned_inputs(case, dev):
     H, W = kw["H"], kw["W"]
     bins = bin_gaussians(proj, H, W, cap=cap)
     N = proj.xys.shape[0]
-    raw, counts = raster_binned._prepare(proj.xys, proj.conics, colors, opacity,
-                                         bins.ids, bins.mask)
-    ids = raster_binned._slot_ids(bins.ids, bins.mask, N).to(torch.int32)
+    table, ids, counts = raster_binned._slot_table(proj.xys, proj.conics, colors, opacity,
+                                                   bins.ids, bins.mask)
     tb = (-(-W // 16), -(-H // 16))
     bbox = raster_binned.tile_bbox_table(proj.xys, proj.radii, tb)
     v_img = torch.as_tensor(np.random.default_rng(N).normal(size=(H, W, 3)).astype(np.float32))
-    return [a.contiguous().to(dev) for a in (raw, counts, ids, bbox, v_img)]
+    return [a.contiguous().to(dev) for a in (table, counts, ids, bbox, v_img)]
 
 
 @pytest.mark.cuda
@@ -319,10 +342,8 @@ def test_tile_table_backward_hard_cases(card, case):
     H, W = kw["H"], kw["W"]
     tb = (-(-W // 16), -(-H // 16))
     bins = bin_gaussians(proj, H, W, cap=cap)
-    N = proj.xys.shape[0]
-    raw, counts = raster_binned._prepare(proj.xys, proj.conics, colors, opacity,
-                                         bins.ids, bins.mask)
-    ids = raster_binned._slot_ids(bins.ids, bins.mask, N).to(torch.int32)
+    table, ids, counts = raster_binned._slot_table(proj.xys, proj.conics, colors, opacity,
+                                                   bins.ids, bins.mask)
     bbox = raster_binned.tile_bbox_table(proj.xys, proj.radii, tb)
     area = ((bbox[:, 1].clamp(max=tb[0]) - bbox[:, 0].clamp(min=0)).clamp(min=0)
             * (bbox[:, 3].clamp(max=tb[1]) - bbox[:, 2].clamp(min=0)).clamp(min=0))
@@ -331,15 +352,15 @@ def test_tile_table_backward_hard_cases(card, case):
     if kw.get("n_invalid"):
         assert int((~proj.valid).sum()) >= kw["n_invalid"]
         # a live slot whose row is invalid contributes nothing
-        raw[0, 0, 15] = 0.0
+        table[int(ids[0, 0]), 15] = 0.0
     if cap == 8:
         full = bin_gaussians(proj, H, W, cap=1024)
         assert int(full.count.sum()) > int(bins.count.sum()), "no member was capped out"
     if cap == 512:
-        assert int(counts.max()) >= 300 and raw.shape[1] == 512
+        assert int(counts.max()) >= 300 and ids.shape[1] == 512
     v_img = torch.as_tensor(np.random.default_rng(kw["seed"]).normal(size=(H, W, 3))
                             .astype(np.float32))
-    args = [a.contiguous() for a in (raw, counts, ids, bbox, v_img)]
+    args = [a.contiguous() for a in (table, counts, ids, bbox, v_img)]
     ref = raster_binned.tile_table_backward_plain(*args)
     on_card = [a.to(card) for a in args]
     out = raster_binned.tile_table_backward(*on_card)
@@ -353,7 +374,7 @@ def test_tile_table_backward_hard_cases(card, case):
 def test_tile_table_backward_clamps_counts(card):
     """counts past K read K slots, negative counts none, as the plain version."""
     args = _binned_inputs("odd-grid", "cpu")
-    K = args[0].shape[1]
+    K = args[2].shape[1]
     args[1] = args[1].clone()
     args[1][0], args[1][1] = K + 7, -3
     ref = raster_binned.tile_table_backward_plain(*args)

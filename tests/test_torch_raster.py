@@ -168,11 +168,47 @@ def test_binned_plain_matches_jax_kernels(case):
                          bj.ids, bj.mask, H, W)
     prep_t = raster_binned.prepare_raster(pt.xys, pt.conics, col_t, op_t, bt.ids, bt.mask, H, W)
     np.testing.assert_array_equal(prep_t.counts.numpy(), np.asarray(prep_j.counts))
-    np.testing.assert_array_equal(prep_t.raw.numpy(), np.asarray(prep_j.raw))
+    # the rows the port's Prepared names through its slot ids are the JAX gathered table
+    np.testing.assert_array_equal(raster_binned._gather(prep_t.table, prep_t.ids).numpy(),
+                                  np.asarray(prep_j.raw))
     out_p = raster_binned.rasterize_prepared_flat(prep_t, H, W)
     assert_render_close(out_p, jax_rasterize_prepared(prep_j, H, W), what=f"prepared {case}")
     assert_render_close(out_p, jax_flat(prep_j, H, W), what=f"flat {case}")
     assert torch.equal(out_p, raster_binned.rasterize_prepared(prep_t, H, W))
+
+
+def test_prepared_plain_on_a_ragged_grid_with_an_empty_and_a_full_tile():
+    """Kernel A's plain version on its inputs (the [N+1, 16] table, the int32
+    slot ids, the counts) against JAX ``rasterize_prepared`` on a 45x77 grid
+    (ragged edge tiles) where the two right tile columns hold no member and
+    tile 0 holds more Gaussians than its cap of 16."""
+    rng = np.random.default_rng(7)
+    n, H, W, cap = 90, 45, 77, 16
+    xy = np.stack([rng.uniform(0, 40, n), rng.uniform(0, 28, n)], -1).astype(np.float32)
+    xy[:30] = np.float32(8.5) + rng.uniform(-2, 2, (30, 2)).astype(np.float32)
+    a, c = rng.uniform(1.0, 4.0, n), rng.uniform(1.0, 4.0, n)
+    cov = np.stack([a, rng.uniform(-0.5, 0.5, n) * np.sqrt(a * c), c], -1).astype(np.float32)
+    colors = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    opacity = rng.uniform(0.2, 1.0, n).astype(np.float32)
+    pj, pt = both_projections(xy, cov, H, W)
+    bj, bt = jax_bin(pj, H, W, cap=cap), bin_gaussians(pt, H, W, cap=cap)
+    counts = bt.count.reshape(3, 5)
+    assert int(counts[:, 3:].max()) == 0 and int(counts[0, 0]) == cap
+    assert int(bin_gaussians(pt, H, W, cap=128).count[0]) > cap        # tile 0 is clipped
+    prep_j = jax_prepare(pj.xys, pj.conics, jnp.asarray(colors), jnp.asarray(opacity),
+                         bj.ids, bj.mask, H, W)
+    prep_t = raster_binned.prepare_raster(pt.xys, pt.conics, torch.as_tensor(colors),
+                                          torch.as_tensor(opacity), bt.ids, bt.mask, H, W)
+    assert prep_t.table.shape == (n + 1, 16) and prep_t.ids.dtype == torch.int32
+    np.testing.assert_array_equal(raster_binned._gather(prep_t.table, prep_t.ids).numpy(),
+                                  np.asarray(prep_j.raw))
+    out = raster_binned.tile_table_forward(prep_t.table, prep_t.ids, prep_t.counts, H, W)
+    assert torch.equal(out, raster_binned.tile_table_forward_plain(*prep_t, H, W))
+    assert_render_close(out, jax_rasterize_prepared(prep_j, H, W), what="prepared ragged grid")
+    # a slot id outside [0, N] reads the sentinel row: nothing
+    bad = prep_t.ids.clone()
+    bad[1, 0], bad[2, 0] = -5, n + 9
+    assert not raster_binned._gather(prep_t.table, bad)[[1, 2], 0].any()
 
 
 LIST_CASES = {
@@ -259,11 +295,25 @@ def test_tile_layout_helpers_match_jax(H, W):
 
 
 def test_wrappers_validate_inputs():
+    table = torch.zeros((11, 16))
     with pytest.raises(ValueError):   # 14 tiles for a 15-tile grid
-        raster_binned.tile_table_forward(torch.zeros((14, 8, 16)),
+        raster_binned.tile_table_forward(table, torch.zeros((14, 8), dtype=torch.int32),
                                          torch.zeros(14, dtype=torch.int32), 48, 80)
+    with pytest.raises(ValueError):   # not an [N+1, 16] table
+        raster_binned.tile_table_forward(torch.zeros((15, 8, 16)),
+                                         torch.zeros((15, 8), dtype=torch.int32),
+                                         torch.zeros(15, dtype=torch.int32), 48, 80)
     with pytest.raises(TypeError):
-        raster_binned.tile_table_forward(torch.zeros((15, 8, 16)), torch.zeros(15), 48, 77)
+        raster_binned.tile_table_forward(table, torch.zeros((15, 8), dtype=torch.int32),
+                                         torch.zeros(15), 48, 77)
+    with pytest.raises(TypeError):    # int64 slot ids
+        raster_binned.tile_table_forward(table, torch.zeros((15, 8), dtype=torch.int64),
+                                         torch.zeros(15, dtype=torch.int32), 48, 77)
+    with pytest.raises(ValueError):   # a bbox table of another N
+        raster_binned.tile_table_backward(table, torch.zeros(15, dtype=torch.int32),
+                                          torch.zeros((15, 8), dtype=torch.int32),
+                                          torch.zeros((12, 4), dtype=torch.int32),
+                                          torch.zeros((48, 80, 3)))
     t = torch.zeros((128, 16))
     i = torch.zeros(15, dtype=torch.int32)
     with pytest.raises(ValueError):
