@@ -9,8 +9,9 @@ It decodes every committed bitstream and renders every committed fitted
 state through the port's entry points, on the card, at the flagship
 configuration (768x512, ~5000 Gaussians, per-tile cap 256), fits 768x512
 images through the cap-free and the binned trainers, a 752x496 crop (an odd
-tile grid) and a 2040x1344 image (20,000 Gaussians), and holds the five
-hand-written CUDA kernels against their plain PyTorch versions. Phases:
+tile grid) and a 2040x1344 image (20,000 Gaussians), runs the coding path
+(QAT, the encoder, the ``.gipb`` written and decoded back), and holds the
+five hand-written CUDA kernels against their plain PyTorch versions. Phases:
 
 1. card: name and power limit from ``nvidia-smi``, checked against torch;
 2. build: the five kernels from ``csrc/``, one ``nvcc`` per source, together;
@@ -79,7 +80,22 @@ hand-written CUDA kernels against their plain PyTorch versions. Phases:
    state through ``render_fast`` with the dense, sweep and range kernels
    against ``'list_t'`` (the forward tolerance), and one state's gradients
    through ``render`` with ``'dense'`` and ``'sweep'`` against ``'list_t'``'s
-   (kernel C's tolerance, per parameter column);
+   (kernel C's tolerance, per parameter column). (f) The coding path:
+   ``fit_image_quantized`` at 768x512 with the default ``QuantConfig``,
+   warm-started from the ``'auto'`` fit's best state, 100 warmup steps (one
+   prune, no growth) and 1000 QAT steps through ``'auto'`` (asserted
+   ``list_t``; kernels B and C once a step; finite PSNRs; the best at or
+   above the first QAT step's); 100 QAT steps, each through ``'auto'`` and
+   through ``'xla'`` from the plain path's state, whose PSNRs (of the step's
+   render and of the state it makes) agree within 0.05 dB; ``encode_decode_eval``
+   writing the ``.gipb`` in id and in Morton order (``bpp`` equals
+   ``analysis_wo_ec``'s formula, ``bpp_stream`` under it, the stream's PSNR
+   within 1e-4 / 1e-3 dB of the encoding's, which is within 0.05 dB of the best
+   QAT PSNR), the bytes decoded through ``decode_bitstream`` (kernel A),
+   ``prepare_decode`` + ``decode_frame`` (A) and ``backend='list_t'`` (B) to
+   images that agree to the forward tolerance; a VQ-colour run (200 QAT
+   steps, encoded, written, decoded back to the encoding's PSNR); and
+   ``evaluate`` on the QAT state;
 5. timing with CUDA events: per frame (median of 50 frames) of the full
    decodes (parse included), the bin-once ``decode_frame`` and a fitted-state
    render; per train step (median of 50) after the growth, through ``'auto'``
@@ -106,7 +122,12 @@ hand-written CUDA kernels against their plain PyTorch versions. Phases:
    ``loss_ms`` = the sum over states of launches x (device_ms - bound_ms),
    which ranks the kernels for redesign; and the device time of a full
    decode and of each train step under the profiler, with every gather
-   among a step's entries.
+   among a step's entries. The coding path: a QAT step (median of 50) and
+   its device time under the profiler, the encoder (``compress_wo_ec`` +
+   ``serialize_bitstream``), the full decode of the stream it wrote, and
+   kernels A, B and C at the QAT state (B and C on the quantized overrides
+   of the QAT result, A on the written stream's binned table), where the
+   coding path's launches are counted.
    In some runs the profiler traces none of the kernels launched through the
    port's own libraries: the log then names them, and D's stages are not
    measured.
@@ -129,6 +150,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -157,6 +179,10 @@ C_REL = 1e-4          # kernel C: per payload column, |kernel - plain| <= C_REL 
 FIT = dict(iterations=1000, prune_iter=100, grow_iter=500)
 FIT_POINTS, FIT_SEED = 2500, 3047
 AGREE_STEPS, AGREE_DB = 100, 0.05
+# the coding path: warmup and QAT steps (the reference runs 6000 and 44,000),
+# the 'auto' vs 'xla' QAT steps, the VQ run's QAT steps, timed full decodes
+QAT = dict(warmup_iter=100, steps=1000)
+QAT_AGREE_STEPS, VQ_STEPS, CODING_RENDERS = 100, 200, 50
 ODD_HW, ODD_FIT, ODD_RISE_DB = (496, 752), dict(iterations=200, prune_iter=100), 3.0
 K2_HW, K2_POINTS, K2_STEPS = (1344, 2040), 20_000, 100
 
@@ -958,6 +984,175 @@ def run() -> None:
                                                  kernel_b_per_enumeration=by_enum,
                                                  grad_worst_column_rel=grad_rel)
 
+    # (f) the coding path: warm-started QAT through kernels B and C, the
+    # encoder, the .gipb written and decoded back through kernels A and B
+    from gaussianimage_plus_tpu_torch.compress import pipeline as pl
+    from gaussianimage_plus_tpu_torch.compress import trainer as ctr
+    from gaussianimage_plus_tpu_torch.train.metrics import psnr as psnr_fn
+
+    qcfg = pl.QuantConfig()
+    cfg_q = gi.GaussianConfig()
+    check(gi.resolve_backend(cfg_q, dev) == "list_t",
+          f"coding path: 'auto' resolved to {gi.resolve_backend(cfg_q, dev)!r}")
+    warm, qat_steps = QAT["warmup_iter"], QAT["steps"]
+    tcfg_q = tr.TrainConfig(iterations=warm + qat_steps, prune_iter=100)
+    log(f"[4] main path (f): fit_image_quantized at {cfg_q.W}x{cfg_q.H}, up to "
+        f"{cfg_q.max_num_points} Gaussians, default QuantConfig (xy {qcfg.xy_bit}-bit LSQ, "
+        f"covariance {qcfg.cov_bit}-bit hybrid, colour {qcfg.color_bit}-bit LSQ), warm-started "
+        f"from the 'auto' fit's best state ({int(res.state.num_active)} active), warmup "
+        f"{warm} steps (one prune, no growth), {qat_steps} QAT steps; cut from the reference's "
+        f"6000 warmup and 44,000 QAT steps for the time limit, nothing else cut")
+    reset_launches()
+    t_q = time.perf_counter()
+    res_q = ctr.fit_image_quantized(fit_target, cfg_q, tcfg_q, qcfg, FIT_POINTS, warmup_iter=warm,
+                                    seed=FIT_SEED, init_state=res.state)
+    sync()
+    qat_s = time.perf_counter() - t_q
+    n_q = read_launches("coding path: fit_image_quantized")
+    p_q = res_q.metrics["psnr"].cpu().numpy()
+    check(p_q.shape == (qat_steps,) and bool(np.isfinite(p_q).all()), "QAT: non-finite PSNR")
+    check(n_q["c"] == warm + qat_steps and n_q["b"] >= warm + qat_steps,
+          f"QAT: kernels B and C launched {n_q['b']} and {n_q['c']} times in {warm + qat_steps} steps")
+    check(res_q.best_psnr >= float(p_q[0]), f"QAT: best {res_q.best_psnr:.4f} dB under the first "
+          f"QAT step's {float(p_q[0]):.4f} dB")
+    log(f"  fit_image_quantized: {warm + qat_steps} steps in {qat_s:.1f} s; launches: "
+        + ", ".join(f"{k.__name__} {n_q[key]}" for key, k in kernels.items())
+        + f"; QAT PSNR first {float(p_q[0]):.4f}, last {float(p_q[-1]):.4f}, best "
+        f"{res_q.best_psnr:.4f} dB; {int(res_q.state.num_active)} active")
+    report["phases"]["coding path: fit_image_quantized"] = dict(
+        seconds=qat_s, launches=n_q, qat_psnr_first=float(p_q[0]), qat_psnr_last=float(p_q[-1]),
+        best_psnr=res_q.best_psnr, warmup_psnr_last=float(res_q.metrics["warmup_psnr"][-1]))
+
+    # QAT steps through kernels B + C against the plain capped path, each from
+    # the plain path's state: the two free runs part (a code at a half-integer
+    # tie rounds either way once float32 sums differ in the last bits), so a
+    # step is held from one start: the PSNR of its render and of the state it
+    # makes (both rendered through the plain quantized forward)
+    st_a = res.state
+    most_q = int(bin_gaussians(gi.project(st_a.params, st_a.active, st_a.bound, cfg_q), cfg_q.H,
+                               cfg_q.W, cap=cfg_q.tile_cap + 1).count.max())
+    check(most_q <= cfg_q.tile_cap, f"QAT agreement: a tile holds {most_q} > cap at the start")
+    cfg_x = dataclasses.replace(cfg_q, raster_backend="xla")
+    carry = (st_a, tr.make_optimizer(tcfg_q).init(st_a.params), pl.init_quantizers(st_a, cfg_x, qcfg),
+             None)
+    qat_psnr = {k: [] for k in ("auto", "xla", "auto next", "xla next")}
+
+    def quant_psnr(b_, s_):
+        with torch.no_grad():
+            return psnr_fn(pl.render_quantized(b_, s_, cfg_x, qcfg)[0], fit_target)
+
+    reset_launches()
+    for _ in range(QAT_AGREE_STEPS):
+        s_, m_, b_, best_ = carry
+        s_a, _, b_a, m_a = pl.quant_train_chunk(s_, m_, b_, fit_target, cfg_q, qcfg, tcfg_q.lr, 1,
+                                                best=best_)
+        s_x, m_x, b_x, m_x_ = pl.quant_train_chunk(s_, m_, b_, fit_target, cfg_x, qcfg, tcfg_q.lr, 1,
+                                                   best=best_)
+        qat_psnr["auto"].append(m_a["psnr"][0])
+        qat_psnr["xla"].append(m_x_["psnr"][0])
+        qat_psnr["auto next"].append(quant_psnr(b_a, s_a))
+        qat_psnr["xla next"].append(quant_psnr(b_x, s_x))
+        carry = (s_x, m_x, b_x, m_x_["best"])
+    qat_psnr = {k: torch.stack(v).cpu().numpy() for k, v in qat_psnr.items()}
+    n_agree = read_launches(f"coding path: {QAT_AGREE_STEPS} QAT steps auto beside xla")
+    check(n_agree["c"] == QAT_AGREE_STEPS and n_agree["b"] >= QAT_AGREE_STEPS,
+          f"QAT 'auto': launches {n_agree} in {QAT_AGREE_STEPS} steps")
+    qat_db = float(np.abs(qat_psnr["auto"] - qat_psnr["xla"]).max())
+    qat_next_db = float(np.abs(qat_psnr["auto next"] - qat_psnr["xla next"]).max())
+    log(f"  {QAT_AGREE_STEPS} QAT steps, each through 'auto' (kernels B + C) and 'xla' (plain, at "
+        f"most {most_q} in a tile) from the plain path's state: the step's PSNR at most "
+        f"{qat_db:.3g} dB apart, the PSNR of the state it makes at most {qat_next_db:.3g} dB "
+        f"apart (last {qat_psnr['auto next'][-1]:.4f} vs {qat_psnr['xla next'][-1]:.4f} dB)")
+    report["phases"]["qat_auto_vs_xla"] = dict(
+        max_db=qat_db, next_max_db=qat_next_db, steps=QAT_AGREE_STEPS,
+        **{f"psnr_{k.replace(' ', '_')}": v.tolist() for k, v in qat_psnr.items()})
+    check(max(qat_db, qat_next_db) <= AGREE_DB,
+          f"QAT 'auto' and 'xla' steps differ by {max(qat_db, qat_next_db):.3g} dB")
+
+    # encode, write, decode back: stream order and Morton order
+    coded = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for order in ("id", "morton"):
+            path_s = Path(tmp) / f"kodim01_qat_{order}.gipb"
+            reset_launches()
+            stats = ctr.encode_decode_eval(res_q.state, res_q.bundle, fit_target, cfg_q, qcfg,
+                                           n_renders=CODING_RENDERS, write_bitstream=str(path_s),
+                                           stream_order=order)
+            data = path_s.read_bytes()
+            img_s, dec_s = decode_bitstream(data, device=dev)              # binned: kernel A
+            cfg_s2 = stream_cfg(dec_s)
+            prep_s = prepare_decode(dec_s.bundle, dec_s.enc, dec_s.bound, cfg_s2, dec_s.qcfg)
+            frame_s = decode_frame(prep_s, cfg_s2)                            # kernel A
+            img_sl, _ = decode_bitstream(data, backend="list_t", device=dev)  # kernel B
+            sync()
+            n_e = read_launches(f"coding path: encode_decode_eval {order}")
+            for tag, im in (("decode_bitstream", img_s), ("decode_frame", frame_s),
+                            ("list_t", img_sl)):
+                valid_image(f"QAT stream {order} {tag}", im, (cfg_q.H, cfg_q.W, 3))
+            agree(f"QAT stream {order}: decode_frame vs decode", frame_s, img_s)
+            proj_sq, _, _ = stream_inputs(dec_s, cfg_s2)
+            if not overflows(proj_sq, cfg_s2):
+                agree(f"QAT stream {order}: list_t vs binned", img_sl, img_s)
+            n_pts = stats["num_points"]
+            hw = cfg_q.H * cfg_q.W
+            bpp_formula = ((n_pts * 2 * qcfg.xy_bit + 128) + (n_pts * 3 * qcfg.cov_bit + 192)
+                           + (n_pts * 3 * qcfg.color_bit + 192)) / hw
+            tol_db = 1e-4 if order == "id" else 1e-3
+            log(f"  encode_decode_eval ({order} order): {n_pts} points, PSNR {stats['psnr']:.4f} "
+                f"dB, MS-SSIM {stats['ms_ssim']:.5f}, bpp {stats['bpp']:.5f}, bpp_wc "
+                f"{stats['bpp_wc']:.5f}, bpp_stream {stats['bpp_stream']:.5f} ({len(data)} bytes), "
+                f"stream PSNR {stats['stream_psnr']:.5f} dB, full decode "
+                f"{stats['decode_full_time'] * 1e3:.4f} ms a frame; launches: "
+                + ", ".join(f"{k.__name__} {n_e[key]}" for key, k in kernels.items()))
+            check(abs(stats["bpp"] - bpp_formula) <= 1e-12, f"{order}: bpp {stats['bpp']} is not "
+                  f"analysis_wo_ec's formula {bpp_formula}")
+            check(stats["bpp_stream"] < stats["bpp"], f"{order}: bpp_stream {stats['bpp_stream']} "
+                  f"not under bpp {stats['bpp']}")
+            check(abs(stats["stream_psnr"] - stats["psnr"]) <= tol_db,
+                  f"{order}: stream PSNR {stats['stream_psnr']} vs {stats['psnr']}")
+            check(abs(stats["psnr"] - res_q.best_psnr) <= AGREE_DB,
+                  f"{order}: encoded PSNR {stats['psnr']:.4f} vs best QAT {res_q.best_psnr:.4f} dB")
+            check(n_e["a"] > 0 and n_e["b"] > 0, f"{order}: decode launches {n_e}")
+            coded[order] = dict(stats, bytes=len(data))
+            if order == "id":
+                stream_q = data
+        report["phases"]["coding path: encode"] = coded
+
+        # the VQ colour path: QAT straight from the fit's best state, encoded and decoded back
+        qcfg_vq = pl.QuantConfig(color_quant="vq")
+        reset_launches()
+        res_vq = ctr.fit_image_quantized(fit_target, cfg_q, tr.TrainConfig(iterations=VQ_STEPS,
+                                                                           prune_iter=100),
+                                         qcfg_vq, FIT_POINTS, warmup_iter=0, seed=FIT_SEED,
+                                         init_state=res.state)
+        path_vq = Path(tmp) / "kodim01_qat_vq.gipb"
+        stats_vq = ctr.encode_decode_eval(res_vq.state, res_vq.bundle, fit_target, cfg_q, qcfg_vq,
+                                          write_bitstream=str(path_vq))
+        img_vq, dec_vq = decode_bitstream(path_vq.read_bytes(), device=dev)
+        sync()
+        n_vq = read_launches("coding path: VQ colour")
+    valid_image("VQ stream", img_vq, (cfg_q.H, cfg_q.W, 3))
+    p_vq = res_vq.metrics["psnr"].cpu().numpy()
+    check(bool(np.isfinite(p_vq).all()) and np.isfinite(stats_vq["psnr"]), "VQ: non-finite PSNR")
+    check(dec_vq.qcfg.color_quant == "vq" and abs(stats_vq["stream_psnr"] - stats_vq["psnr"]) <= 1e-4,
+          f"VQ: the stream decodes to {stats_vq['stream_psnr']} dB, the encoding {stats_vq['psnr']}")
+    check(n_vq["c"] == VQ_STEPS, f"VQ: kernel C launched {n_vq['c']} times")
+    log(f"  VQ colour: {VQ_STEPS} QAT steps, best {res_vq.best_psnr:.4f} dB; encoded PSNR "
+        f"{stats_vq['psnr']:.4f} dB, bpp {stats_vq['bpp']:.5f}, bpp_stream "
+        f"{stats_vq['bpp_stream']:.5f}, stream PSNR {stats_vq['stream_psnr']:.5f} dB")
+    report["phases"]["coding path: VQ colour"] = dict(stats_vq, best_psnr=res_vq.best_psnr,
+                                                       launches=n_vq)
+
+    # evaluate on the QAT result, MS-SSIM of the decoded image beside it
+    reset_launches()
+    ev = tr.evaluate(res_q.state, fit_target, cfg_q, n_renders=CODING_RENDERS)
+    read_launches("coding path: evaluate")
+    log(f"  evaluate (QAT state, unquantized render): PSNR {ev['psnr']:.4f} dB, MS-SSIM "
+        f"{ev['ms_ssim']:.5f}, {ev['eval_time'] * 1e3:.4f} ms a render ({ev['fps']:.0f} FPS); "
+        f"MS-SSIM of the decoded stream {coded['id']['ms_ssim']:.5f}")
+    check(np.isfinite(ev["psnr"]) and 0 < ev["ms_ssim"] <= 1, f"evaluate: {ev}")
+    report["phases"]["coding path: evaluate"] = ev
+
     # kernels D and E on the states the paths produced
     log("[3] kernels A, D and E on the fit and 2K states")
     g_b = res_bin.state
@@ -1197,6 +1392,74 @@ def run() -> None:
         report.setdefault("decode_device_time", {})[backend] = dict(
             busy_ms=busy, frame_ms=frame, top=top, not_traced=missing)
 
+    # the coding path: a QAT step after the warmup, from the QAT result with a
+    # fresh model Adam; the encoder; the full decode of the stream it wrote
+    from gaussianimage_plus_tpu_torch.compress.bitstream import serialize_bitstream
+
+    st_q, b_q = res_q.state, res_q.bundle
+    box_q = [(st_q, tr.make_optimizer(tcfg_q).init(st_q.params), b_q, None)]
+
+    def qat_step():
+        s_, m_, b_, best_ = box_q[0]
+        s_, m_, b_, mm = pl.quant_train_chunk(s_, m_, b_, fit_target, cfg_q, qcfg, tcfg_q.lr, 1,
+                                              best=best_)
+        box_q[0] = (s_, m_, b_, mm["best"])
+
+    times["QAT step, auto (list_t)"] = qat_ms = median_ms(qat_step)
+    busy_q, rows_q, missing_q = device_time_per_call(qat_step,
+                                                     kernels=names_b + ["chunk_backward_kernel"])
+    check(busy_q > 0, "torch.profiler recorded no device time in a QAT step")
+    log(f"  QAT step ({int(st_q.num_active)} active, auto (list_t)): {qat_ms:.4f} ms; device busy "
+        f"{busy_q:.4f} ms ({busy_q / qat_ms:.1%}); top device time: "
+        + "; ".join(f"{name[:60]} {ms:.4f} ms" for name, ms in rows_q[:6])
+        + (f"; not traced, so left out: {', '.join(missing_q)}" if missing_q else ""))
+    report.setdefault("train_step_device_time", {})["QAT, auto (list_t)"] = dict(
+        busy_ms=busy_q, step_ms=qat_ms, active=int(st_q.num_active), top=rows_q[:6],
+        not_traced=missing_q)
+    times["encode: compress_wo_ec + serialize_bitstream"] = median_ms(
+        lambda: serialize_bitstream(b_q, pl.compress_wo_ec(b_q, st_q, cfg_q, qcfg), cfg_q, qcfg),
+        frames=10)
+    times["frame: decode_bitstream binned, QAT stream (parse included)"] = median_ms(
+        lambda: decode_bitstream(stream_q, device=dev))
+    busy_dq, _, _ = device_time_per_call(lambda: decode_bitstream(stream_q, device=dev),
+                                         kernels=names_a)
+    for k in ("encode: compress_wo_ec + serialize_bitstream",
+              "frame: decode_bitstream binned, QAT stream (parse included)"):
+        log(f"  {k}: {times[k]:.4f} ms")
+    log(f"  decode_bitstream binned, QAT stream: device busy {busy_dq:.4f} ms a frame")
+    report["decode_device_time"]["binned, QAT stream"] = dict(
+        busy_ms=busy_dq, frame_ms=times["frame: decode_bitstream binned, QAT stream (parse included)"])
+    # kernels A, B and C at the QAT state: B and C on the quantized overrides
+    # of the QAT result, A on the binned table of the stream it wrote
+    with torch.no_grad():
+        means_q, cov_q, cols_q, _, _ = pl.quantize_attributes(b_q, st_q, cfg_q, qcfg,
+                                                              update_vq=False)
+        proj_q = gi.project(st_q.params, st_q.active, st_q.bound, cfg_q, cov_override=cov_q,
+                            means_override=means_q)
+        cot_q = l2_cotangent(gi.render(st_q, cfg_q, cov_override=cov_q, means_override=means_q,
+                                       colors_override=cols_q), fit_target)
+    inp_q = raster_list.list_inputs(proj_q, cols_q, torch.ones((cfg_q.max_num_points,), device=dev),
+                                    cfg_q.H, cfg_q.W, 128)
+    err["b"] = max(err["b"], compare("B QAT state kc 128", kernel_b(*inp_q, 128, cfg_q.H, cfg_q.W),
+                                     plain_b(*inp_q, 128, cfg_q.H, cfg_q.W)))
+    table_cq, bbox_cq = c_inputs(proj_q, cols_q, cfg_q.H, cfg_q.W, 128)
+    err["c"] = max(err["c"], compare_payload("C QAT state kc 128, L2 cotangent", kernel_c, plain_c,
+                                             (table_cq, bbox_cq, cot_q)))
+    _, dec_q = decode_bitstream(stream_q, device=dev)
+    cfg_dq = stream_cfg(dec_q)
+    proj_dq, col_dq, ones_dq = stream_inputs(dec_q, cfg_dq)
+    bins_dq = bin_gaussians(proj_dq, cfg_dq.H, cfg_dq.W, cap=cfg_dq.tile_cap)
+    a_states["qat"] = (*raster_binned._slot_table(proj_dq.xys, proj_dq.conics, col_dq, ones_dq,
+                                                  bins_dq.ids, bins_dq.mask), cfg_dq.H, cfg_dq.W)
+    err["a"] = max(err["a"], compare_a("A QAT stream binned (cap 256)", a_states["qat"][:3],
+                                       cfg_dq.H, cfg_dq.W))
+    for key, fn in (("kernel A, QAT stream", lambda: kernel_a(*a_states["qat"])),
+                    ("kernel B, QAT state kc 128", lambda: kernel_b(*inp_q, 128, cfg_q.H, cfg_q.W)),
+                    ("kernel C, QAT state kc 128", lambda: kernel_c(table_cq, bbox_cq, cot_q))):
+        times[key], device_ms[key] = launch_ms(fn), device_ms_per_call(fn)
+        log(f"  {key}: {device_ms[key]:.4f} ms device time a call (queued), {times[key]:.4f} ms "
+            f"back to back")
+
     # bounds at the timed inputs: what this run's data needs
     def a_bound(table_, ids_, counts_, h_, w_):
         """Kernel A: OPS_PER_PAIR at each live (slot, pixel) pair on the image;
@@ -1236,6 +1499,10 @@ def run() -> None:
     log(f"  kernel B on the fit state (Morton order, kc 128): {members_fit} members, {rows_fit} "
         f"table rows visited ({rows_fit / members_fit:.1f} per member)")
     report["kernel_b_fit_state"] = dict(members=members_fit, rows_visited=rows_fit)
+    members_q = list_members(inp_q[0], inp_q[1], cfg_q.H, cfg_q.W)
+    bound_q = bound(members_q * PIX * OPS_PER_PAIR,
+                    (inp_q[0].numel() + inp_q[1].numel() + inp_q[2].numel() + 3 * T) * 4
+                    + cfg_q.H * cfg_q.W * 3 * 4)
     bound_a, by_a = a_bound(*a_states["kodim01"])
     bound_b, by_b = bound(members_b * PIX * OPS_PER_PAIR, bytes_b)
     enum_bounds = {}
@@ -1304,6 +1571,9 @@ def run() -> None:
     state_of_path = {"decode and render": "kodim01", "fit": "fit", "binned fit": "fit",
                      "odd-grid fit": "fit", "2K fit": "2K",
                      "render dense / sweep gradients": "kodim01"}
+    # the coding path's launches at the QAT state (its 100 warmup steps
+    # among them, on the state before quantization)
+    state_of_path.update({p_: "qat" for p_ in path_launches if p_.startswith("coding path")})
     state_of_path.update({f"{AGREE_STEPS} steps {b}": "fit" for b in ("auto", "xla", "pallas")})
     enum_state = {"list_t": "kodim01", "dense": "kodim01 dense", "sweep": "kodim01 sweep",
                   "range": "kodim01 range"}
@@ -1325,13 +1595,16 @@ def run() -> None:
     timed_states = {
         "a": {"kodim01": ("kernel A, kodim01 trimmed", (bound_a, by_a)),
               "fit": ("kernel A, fit state", a_bound(*a_states["fit"])),
-              "2K": ("kernel A, 2K state", a_bound(*a_states["2K"]))},
+              "2K": ("kernel A, 2K state", a_bound(*a_states["2K"])),
+              "qat": ("kernel A, QAT stream", a_bound(*a_states["qat"]))},
         "b": {"kodim01": ("kernel B, kodim01 kc 128", (bound_b, by_b)),
               "fit": ("kernel B, fit state kc 128", (bound_fit, by_fit)),
+              "qat": ("kernel B, QAT state kc 128", bound_q),
               **{enum_state[k]: (f"kernel B, kodim01 stream order, {k} kc {kc_}",
                                  enum_bounds[(k, "stream order")])
                  for k, kc_ in (("dense", kc_d), ("sweep", kc_s), ("range", kc_s))}},
         "c": {"fit": ("kernel C, fit state kc 128", (bound_c, by_c)),
+              "qat": ("kernel C, QAT state kc 128", c_bound(table_cq, bbox_cq, cfg_q.H, cfg_q.W)[0]),
               "kodim01": ("kernel C, kodim01 stream order kc 128",
                           c_bound(table_c01, bbox_c01, H, W)[0])},
         "d": {"fit": ("kernel D, binned fit state", d_bounds["binned fit state"]),

@@ -117,6 +117,14 @@ def decompress_categorical(words, counts, unique, length, shape) -> np.ndarray:
     return np.asarray(unique)[idx].reshape(shape)
 
 
+def categorical_bits(matrix) -> int:
+    """Size in bits of the categorical stream with its histogram and unique
+    table (the reference's get_np_size accounting, quantize.py:300-304)."""
+    words, counts, unique = compress_categorical(matrix)
+    return int(words.size * words.itemsize * 8 + counts.size * counts.itemsize * 8
+               + unique.size * unique.itemsize * 8)
+
+
 def gaussian_counts(mean: float, std: float, vmin: int, vmax: int) -> np.ndarray:
     """Discretized-Gaussian histogram over the integer support [vmin, vmax]
     (utils.py:94-110), deterministic in its four scalars."""
@@ -148,3 +156,10 @@ def decompress_gaussian(words, mean: float, std: float, vmin: int, vmax: int,
                         n: int) -> np.ndarray:
     counts = gaussian_counts(mean, std, vmin, vmax)
     return decode_rans(words, counts, n).astype(np.int64) + vmin
+
+
+def gaussian_global_bits(matrix) -> int:
+    """Size in bits of the stream under the global quantized-Gaussian model
+    (the reference uses only this size, for ``bpp_wc``; train_quantize.py:250-252)."""
+    words, *_ = compress_gaussian(matrix)
+    return int(words.size * 16)

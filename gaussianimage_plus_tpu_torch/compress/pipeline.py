@@ -1,27 +1,48 @@
-"""Codec decode: dequantize integer codes and render them.
+"""Codec: quantization-aware training, the encoder, decode and bpp accounting.
 
-Port of the decode half of ``gaussianimage_plus_tpu/compress/pipeline.py``:
-``QuantConfig``, ``QuantizerBundle`` (the quantizer grids; the optimizer
-states belong to the QAT slice), ``Encoding``, ``_decode_attributes``,
-``decompress_wo_ec`` (reference gaussianimage_covariance.py:445-467),
-``prepare_decode``/``decode_frame`` (the bin-once decode) and
-``morton_reorder``.
+Port of ``gaussianimage_plus_tpu/compress/pipeline.py``: ``QuantConfig``,
+``QuantizerBundle``, the data init (``_masked_min_max``,
+``_uniform_init_masked``, ``init_quantizers``; gaussianimage_covariance.py
+:148-153), the quantized forward (``_log_fwd_masked``, ``quantize_attributes``,
+``render_quantized``), the per-quantizer Adams (``make_quantizer_opts``), the
+QAT steps (``quant_train_chunk``), the encoder (``compress_wo_ec``,
+:412-443), the decode (``_decode_attributes``, ``decompress_wo_ec``,
+``prepare_decode``/``decode_frame``), ``morton_reorder`` and the bpp
+accounting (``analysis_wo_ec``, :469-509). The JAX ``_uniform_fwd`` is
+``quantizers.uniform_forward``. ``quant_train_macro_chunk`` fuses chunks into
+one TPU dispatch and is step-for-step equal to a loop of chunks, which is what
+``compress.trainer`` runs.
+
+Every quantizer statistic is taken over the active rows only. The QAT step
+never re-sorts the rows (the JAX loop does not), masks the model update of
+inactive rows after the moment update (their moments still move, unlike the
+fit's ``zero_rows``), and carries the best snapshot on the device with
+``torch.where``: no step synchronises with the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..core.binning import morton_perm
+from ..core.gaussian2d import psd_valid_mask
 from ..models.gaussian_image import (GaussianConfig, GaussianParams,
-                                     GaussianState, prepare_render, render,
-                                     render_fast, render_prepared)
+                                     GaussianState, colors_of, effective_cov2d,
+                                     prepare_render, render, render_fast,
+                                     render_prepared)
+from ..train.losses import loss_fn
+from ..train.metrics import psnr as psnr_fn
+from ..train.optim import Adam, AdamState, make_adam, step_lr
 from .quantizers import (HybridQuantParams, LogQuantState, UniformQuantParams,
-                         log_decompress, uniform_decompress)
-from .residual_vq import residual_vq_decode
+                         _exp, _log, clip, fake_quantize_half, hybrid_size,
+                         log_decompress, ste_round, uniform_decompress,
+                         uniform_forward, uniform_qrange)
+from .residual_vq import (ResidualVQState, init_residual_vq, residual_vq_bits,
+                          residual_vq_decode, residual_vq_forward)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,13 +62,262 @@ class QuantConfig:
 
 
 class QuantizerBundle(NamedTuple):
-    """Quantizer grids a decoder needs. ``color_vq`` holds the residual-VQ
-    codebooks when ``color_quant == 'vq'`` (then ``color`` is unused)."""
+    """Quantizer grids, and in training their optimizer states. ``color_vq``
+    holds the residual-VQ codebooks when ``color_quant == 'vq'`` (then
+    ``color`` is unused; the codebooks move by EMA, with no optimizer). A
+    decoder needs the grids only, so the Adam states of the three learned
+    grids (``Adam`` over ``(scale, beta)``) and the shared schedule count
+    ``step`` default to ``None``."""
 
     xy: UniformQuantParams
     cov: HybridQuantParams
     color: UniformQuantParams
-    color_vq: object = None
+    color_vq: Optional[ResidualVQState] = None
+    xy_opt: Optional[AdamState] = None
+    cov_opt: Optional[AdamState] = None
+    color_opt: Optional[AdamState] = None
+    step: Optional[torch.Tensor] = None
+
+
+_BIG = float(np.finfo(np.float32).max)
+
+
+def _quantile(x: torch.Tensor, q: float, nan_rows: bool = False) -> torch.Tensor:
+    """Per-column linear-interpolation quantile of [M, C] ``x``, computed as
+    ``jnp.quantile`` computes it: the float32 rank ``q (n - 1)``, then
+    ``low (1 - w) + high w`` (XLA's CPU compiler may fuse one product into
+    an FMA, so the two can differ by an ulp). With ``nan_rows`` NaNs are
+    left out of ``n`` (``jnp.nanquantile``; the median then averages the two
+    middle values, where ``torch.nanmedian`` returns the lower one).
+    ``torch.quantile`` interpolates with ``lerp``, which rounds differently."""
+    xs = torch.sort(x, dim=0).values                     # NaNs sort last
+    qt = torch.tensor(q, dtype=torch.float32, device=x.device)
+    if nan_rows:
+        n = (~torch.isnan(x)).sum(0).to(torch.float32)
+    else:
+        n = torch.full((x.shape[1],), float(x.shape[0]), device=x.device)
+    rank = qt * (n - 1)
+    low, high = torch.floor(rank), torch.ceil(rank)
+    w_high = rank - low
+    w_low = 1 - w_high
+    zero = torch.zeros((), device=x.device)
+    low = torch.maximum(zero, torch.minimum(low, n - 1)).long()
+    high = torch.maximum(zero, torch.minimum(high, n - 1)).long()
+    return xs.gather(0, low[None])[0] * w_low + xs.gather(0, high[None])[0] * w_high
+
+
+def _masked_min_max(x: torch.Tensor, active: torch.Tensor, percentile: float = 100.0):
+    """Per-column (min, max) over the active rows, or the ``[100 - p, p]``
+    percentiles with the inactive rows pushed to the active rows' median, so
+    that they do not drag the tails."""
+    m = active[:, None]
+    if percentile >= 100.0:
+        big = torch.full_like(x, _BIG)
+        return (torch.where(m, x, big).min(dim=0).values,
+                torch.where(m, x, -big).max(dim=0).values)
+    med = _quantile(torch.where(m, x, torch.full_like(x, float("nan"))), 0.5, nan_rows=True)
+    xa = torch.where(m, x, med[None, :])
+    # jnp.percentile's q = p / 100 in float32, as XLA compiles it: p times
+    # the float32 reciprocal 0.01 (for p = 99, 0.98999995, an ulp under 99 / 100)
+    lo_q = float(np.float32(100.0 - percentile) * np.float32(0.01))
+    hi_q = float(np.float32(percentile) * np.float32(0.01))
+    return _quantile(xa, lo_q), _quantile(xa, hi_q)
+
+
+def _uniform_init_masked(x, active, bits, signed=False,
+                         percentile: float = 100.0) -> UniformQuantParams:
+    qmin, qmax = uniform_qrange(bits, signed)
+    t_min, t_max = _masked_min_max(x, active, percentile)
+    scale = (t_max - t_min) / (qmax - qmin)
+    scale = torch.where(scale == 0, torch.full_like(scale, 1e-8), scale)
+    return UniformQuantParams(scale=scale, beta=t_min - qmin * scale)
+
+
+def _log_fwd_masked(x: torch.Tensor, active: torch.Tensor, bits: int):
+    """Non-learned log quantizer over the active rows only (quantize.py
+    :219-234), with its own scale floor ``max(scale, 1e-12)`` (the JAX
+    package's; ``quantizers.log_forward`` floors at 1e-8). The ``log`` and
+    ``exp`` are float64, rounded once (``quantizers._log``/``_exp``).
+    Returns (dequant, code, grid)."""
+    qmin, qmax = uniform_qrange(bits, signed=False)
+    log_x = _log(torch.abs(x) + 1e-6)
+    m = active[:, None]
+    big = torch.full_like(log_x, _BIG)
+    beta = torch.where(m, log_x, big).min()
+    max_log = torch.where(m, log_x, -big).max()
+    scale = torch.maximum((max_log - beta) / (qmax - qmin),
+                          torch.tensor(1e-12, device=x.device))
+    quant = ste_round(clip((log_x - beta) / scale, qmin, qmax))
+    return _exp(quant * scale + beta), quant, LogQuantState(beta=beta, scale=scale)
+
+
+def make_quantizer_opts(qcfg: QuantConfig) -> Tuple[Adam, Adam, Adam]:
+    """The per-quantizer Adams (gaussianimage_covariance.py:119-146): xy at
+    torch's default eps 1e-8 (:122), covariance and colour at 1e-15 (:131-132,
+    :143-144), all on ``StepLR(quant_lr_step, quant_lr_gamma)``."""
+    sched = step_lr(qcfg.quant_lr, qcfg.quant_lr_step, qcfg.quant_lr_gamma)
+    return Adam(sched, eps=1e-8), Adam(sched, eps=1e-15), Adam(sched, eps=1e-15)
+
+
+def _grid_leaves(p) -> Tuple[torch.Tensor, ...]:
+    """The learned tensors of a grid, in the order its Adam holds them."""
+    u = p.cov if isinstance(p, HybridQuantParams) else p
+    return (u.scale, u.beta)
+
+
+def _grid_like(p, leaves):
+    u = UniformQuantParams(*leaves)
+    return HybridQuantParams(cov=u) if isinstance(p, HybridQuantParams) else u
+
+
+def init_quantizers(state: GaussianState, cfg: GaussianConfig, qcfg: QuantConfig,
+                    generator: Optional[torch.Generator] = None,
+                    vq_init_indices: Optional[Sequence[torch.Tensor]] = None) -> QuantizerBundle:
+    """_init_data (gaussianimage_covariance.py:148-153) on ``state``, on its
+    device, with fresh Adam states. In ``'vq'`` colour mode the residual VQ
+    (codebook size 8, 2 quantizers, 5 k-means iterations; :137-138) is
+    initialised on the active rows' colours (inactive rows take the first
+    active row's); its first k-means centres come from ``vq_init_indices``,
+    else from ``generator`` (default: a generator seeded with 0)."""
+    active = state.active
+    pct = qcfg.init_percentile
+    with torch.no_grad():
+        xy_p = _uniform_init_masked(state.params.xyz, active, qcfg.xy_bit)
+        cov_eff = effective_cov2d(state.params, state.bound, cfg)
+        cov_p = HybridQuantParams(cov=_uniform_init_masked(cov_eff[:, 1:2], active,
+                                                           qcfg.cov_bit, percentile=pct))
+        colors = colors_of(state.params, cfg)
+        col_p = _uniform_init_masked(colors, active, qcfg.color_bit, percentile=pct)
+        color_vq = None
+        if qcfg.color_quant == "vq":
+            first = torch.argmax(active.to(torch.int32))
+            colors = torch.where(active[:, None], colors, colors[first][None, :])
+            if generator is None and vq_init_indices is None:
+                generator = torch.Generator(device=colors.device).manual_seed(0)
+            color_vq = init_residual_vq(colors, num_quantizers=2, codebook_size=8,
+                                        kmeans_iters=5, generator=generator,
+                                        init_indices=vq_init_indices)
+    xy_tx, cov_tx, col_tx = make_quantizer_opts(qcfg)
+    return QuantizerBundle(
+        xy=xy_p, cov=cov_p, color=col_p, color_vq=color_vq,
+        xy_opt=xy_tx.init(_grid_leaves(xy_p)), cov_opt=cov_tx.init(_grid_leaves(cov_p)),
+        color_opt=col_tx.init(_grid_leaves(col_p)),
+        step=torch.zeros((), dtype=torch.int32, device=active.device))
+
+
+def quantize_attributes(bundle: QuantizerBundle, state: GaussianState,
+                        cfg: GaussianConfig, qcfg: QuantConfig, update_vq: bool = True):
+    """forward_quantize's attribute path (gaussianimage_covariance.py:384-393)
+    -> (means, cov_elements, colors, codes dict, log grid). In ``'vq'`` mode
+    ``codes['color_vq_state']`` holds the codebooks after this batch's EMA
+    step (``update_vq``)."""
+    if qcfg.xy_quant == "fp16":
+        means = fake_quantize_half(state.params.xyz)
+        code_xy = means
+    else:
+        means, code_xy = uniform_forward(bundle.xy, state.params.xyz, qcfg.xy_bit)
+    cov_eff = effective_cov2d(state.params, state.bound, cfg)
+    var_dq, code_var, log_state = _log_fwd_masked(cov_eff[:, ::2], state.active, qcfg.cov_bit)
+    cov_dq, code_cov = uniform_forward(bundle.cov.cov, cov_eff[:, 1:2], qcfg.cov_bit)
+    cov_elements = torch.cat([var_dq[:, 0:1], cov_dq, var_dq[:, 1:2]], dim=1)
+    codes = {"xy": code_xy,
+             "cov": torch.cat([code_var[:, 0:1], code_cov, code_var[:, 1:]], dim=1)}
+    raw_colors = colors_of(state.params, cfg)
+    if qcfg.color_quant == "vq":
+        colors, _, codes["color"], codes["color_vq_state"] = residual_vq_forward(
+            bundle.color_vq, raw_colors, update=update_vq)
+    else:
+        colors, codes["color"] = uniform_forward(bundle.color, raw_colors, qcfg.color_bit)
+    return means, cov_elements, colors, codes, log_state
+
+
+def render_quantized(bundle: QuantizerBundle, state: GaussianState, cfg: GaussianConfig,
+                     qcfg: QuantConfig):
+    """The quantized attributes rendered as overrides -> (image, codes, log grid)."""
+    means, cov_elements, colors, codes, log_state = quantize_attributes(bundle, state, cfg, qcfg)
+    img = render(state, cfg, cov_override=cov_elements, means_override=means,
+                 colors_override=colors)
+    return img, codes, log_state
+
+
+def _pick(cond: torch.Tensor, a, b):
+    """``torch.where(cond, a, b)`` over matching trees of tensors (None leaves)."""
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        return torch.where(cond, a, b)
+    picked = [_pick(cond, x, y) for x, y in zip(a, b)]
+    return type(a)(*picked) if hasattr(a, "_fields") else tuple(picked)
+
+
+def _leaf(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().requires_grad_(True)
+
+
+def quant_train_chunk(state: GaussianState, model_opt_state: AdamState,
+                      bundle: QuantizerBundle, gt: torch.Tensor, cfg: GaussianConfig,
+                      qcfg: QuantConfig, model_lr: float, n_steps: int, best=None):
+    """``n_steps`` quantization-aware steps (train_iter_quantize,
+    gaussianimage_covariance.py:219-247): the L2 image loss alone (the VQ
+    commitment loss is computed and never added, :224); the model Adam and
+    the three quantizer Adams all step; the VQ codebooks take this batch's
+    EMA step. The model Adam is ``Adam(model_lr, eps 1e-15)`` on
+    ``StepLR(20000, 0.5)`` whatever the fit's schedule was (the JAX
+    package's ``pipeline.py:251``); only its state carries over.
+
+    ``best`` is the (psnr, params, (xy, cov, color) grids, color_vq) carry of
+    the best quantized PSNR. A step that beats it strictly stores the
+    parameters, grids and codebooks that produced its image (pre-update), so
+    encoding the snapshot reproduces the PSNR; the reference copies the
+    post-update state, one step later (a deliberate deviation of the JAX
+    package, kept). Returns (state, model_opt_state, bundle, metrics) with
+    per-step ``loss`` and ``psnr`` tensors and the ``best`` carry."""
+    model_tx = make_adam(model_lr, 20000, 0.5, 1e-15)
+    txs = make_quantizer_opts(qcfg)
+    dev = state.active.device
+    gt = gt.to(dev)
+    if best is None:
+        best = (torch.full((), -float("inf"), device=dev), state.params,
+                (bundle.xy, bundle.cov, bundle.color), bundle.color_vq)
+    m = state.active[:, None]
+    losses, psnrs = [], []
+    for _ in range(n_steps):
+        params = GaussianParams(*map(_leaf, state.params))
+        grids = tuple(_grid_like(g, map(_leaf, _grid_leaves(g)))
+                      for g in (bundle.xy, bundle.cov, bundle.color))
+        b = bundle._replace(xy=grids[0], cov=grids[1], color=grids[2])
+        img, codes, _ = render_quantized(b, state._replace(params=params), cfg, qcfg)
+        loss = loss_fn(img, gt, "L2")
+        leaves = tuple(params) + tuple(t for g in grids for t in _grid_leaves(g))
+        # the unused grid (xy in fp16 mode, colour in vq mode) has no gradient
+        grads = [torch.zeros_like(t) if g is None else g for t, g in
+                 zip(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+        with torch.no_grad():
+            upd, model_opt_state = model_tx.update(tuple(grads[:3]), model_opt_state)
+            new_params = GaussianParams(*(p + torch.where(m, u, torch.zeros_like(u))
+                                          for p, u in zip(state.params, upd)))
+            new_grids, new_opts = [], []
+            for i, (g, tx, opt) in enumerate(zip(
+                    (bundle.xy, bundle.cov, bundle.color), txs,
+                    (bundle.xy_opt, bundle.cov_opt, bundle.color_opt))):
+                u, opt = tx.update(tuple(grads[3 + 2 * i:5 + 2 * i]), opt)
+                new_grids.append(_grid_like(g, [t + d for t, d in zip(_grid_leaves(g), u)]))
+                new_opts.append(opt)
+            cur_psnr = psnr_fn(img.detach(), gt)
+            improved = cur_psnr > best[0]
+            best = (torch.where(improved, cur_psnr, best[0]),
+                    _pick(improved, state.params, best[1]),
+                    _pick(improved, (bundle.xy, bundle.cov, bundle.color), best[2]),
+                    _pick(improved, bundle.color_vq, best[3]))
+            bundle = bundle._replace(
+                xy=new_grids[0], cov=new_grids[1], color=new_grids[2], xy_opt=new_opts[0],
+                cov_opt=new_opts[1], color_opt=new_opts[2], step=bundle.step + 1,
+                color_vq=codes.get("color_vq_state", bundle.color_vq))
+            state = state._replace(params=new_params)
+            losses.append(loss.detach())
+            psnrs.append(cur_psnr)
+    return state, model_opt_state, bundle, {"loss": torch.stack(losses),
+                                            "psnr": torch.stack(psnrs), "best": best}
 
 
 class Encoding(NamedTuple):
@@ -156,3 +426,45 @@ def morton_reorder(enc: Encoding, bound: torch.Tensor,
                          quant_cov=enc.quant_cov[perm],
                          color_codes=enc.color_codes[perm], active=enc.active[perm]),
             bound[perm])
+
+
+def compress_wo_ec(bundle: QuantizerBundle, state: GaussianState, cfg: GaussianConfig,
+                   qcfg: QuantConfig) -> Encoding:
+    """Quantize to integer codes on the state's device; deactivate points
+    whose quantized covariance is not PSD (gaussianimage_covariance.py
+    :412-443). In fp16 mode the xy codes are the fp16 round-trip values."""
+    with torch.no_grad():
+        means, cov_elements, colors, codes, log_state = quantize_attributes(
+            bundle, state, cfg, qcfg, update_vq=False)
+        color_codes = codes["color"]
+        if qcfg.color_quant == "vq":
+            color_codes = color_codes.to(torch.int32)
+        active = state.active & psd_valid_mask(cov_elements)
+        return Encoding(means=means, quant_means=codes["xy"], quant_cov=codes["cov"],
+                        color_codes=color_codes, log_state=log_state, active=active,
+                        num_active=active.sum(dtype=torch.int32))
+
+
+def analysis_wo_ec(enc: Encoding, cfg: GaussianConfig, qcfg: QuantConfig,
+                   bundle: Optional[QuantizerBundle] = None) -> dict:
+    """bpp from bit widths (gaussianimage_covariance.py:469-509), on the host:
+    lsq attributes charge their codes at the bit width plus two float32 per
+    channel of grid; fp16 xy 16 bits a coordinate and no grid; the VQ colour
+    branch its float32 codebooks plus ``ceil(log2(max(idx_max, 1) + 1e-9))``
+    bits per index (:487-493, kept as the JAX package has it)."""
+    n = int(enc.num_active)
+    if qcfg.xy_quant == "fp16":
+        position_bits = n * 2 * 16
+    else:
+        position_bits = n * 2 * qcfg.xy_bit + 32 * 2 * 2
+    cholesky_bits = n * 3 * hybrid_size(qcfg.cov_bit, qcfg.cov_bit) + 32 * 3 * 2
+    if qcfg.color_quant == "vq" and bundle is not None:
+        idx = enc.color_codes.cpu().numpy()[enc.active.cpu().numpy()]
+        max_bit = (float(np.ceil(np.log2(max(int(idx.max()), 1) + 1e-9))) if idx.size else 0)
+        feature_bits = idx.size * max_bit + residual_vq_bits(bundle.color_vq)
+    else:
+        feature_bits = n * 3 * qcfg.color_bit + 32 * 3 * 2
+    hw = cfg.H * cfg.W
+    return {"bpp": (position_bits + cholesky_bits + feature_bits) / hw,
+            "position_bpp": position_bits / hw, "cholesky_bpp": cholesky_bits / hw,
+            "feature_dc_bpp": feature_bits / hw, "num_points": n}

@@ -9,8 +9,11 @@ objects on a device, so both packages can compute from identical inputs:
   ``GaussianState`` leaves (``xyz``, ``cov2d``, ``features``, ``active``,
   ``bound``, optional ``num_active``) -> ``GaussianState``;
   ``config_from_numpy`` builds the matching ``GaussianConfig``;
-- ``encoding_from_numpy`` / ``bundle_from_numpy``: a JAX ``DecodedBitstream``'s
-  ``enc`` / ``bundle`` -> ``Encoding`` / ``QuantizerBundle``;
+- ``encoding_from_numpy`` / ``bundle_from_numpy``: a JAX ``Encoding`` /
+  ``QuantizerBundle`` (a decoded stream's, or a QAT bundle with its three
+  quantizer Adam states and ``step``) -> ``Encoding`` / ``QuantizerBundle``;
+- ``adam_state_from_numpy``: optax's Adam chain state over any tree of
+  parameters -> the port's ``AdamState`` (the tree's leaves in field order);
 - ``train_state_from_numpy``: an object shaped like the JAX ``TrainState``
   (``gaussians``, ``opt_state`` = optax's Adam chain state, ``step``, the best
   snapshot) -> the port's ``TrainState``; ``train_state_to_numpy`` goes back,
@@ -18,6 +21,8 @@ objects on a device, so both packages can compute from identical inputs:
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -88,9 +93,41 @@ def encoding_from_numpy(enc, device=None) -> Encoding:
         num_active=_t(np.asarray(enc.num_active, np.int32), dev))
 
 
-def bundle_from_numpy(bundle, device=None) -> QuantizerBundle:
-    """An object with ``QuantizerBundle``'s grid fields -> ``QuantizerBundle``."""
+def _tree_leaves(tree) -> list:
+    """Leaves of a tree of NamedTuples and dataclasses, in field order
+    (optax moments keep the parameters' structure)."""
+    if hasattr(tree, "_fields"):
+        names = tree._fields
+    elif dataclasses.is_dataclass(tree):
+        names = [f.name for f in dataclasses.fields(tree)]
+    else:
+        return [tree]
+    return [leaf for f in names for leaf in _tree_leaves(getattr(tree, f))]
+
+
+def adam_state_from_numpy(opt_state, device=None) -> AdamState:
+    """optax's ``adam`` state (``opt_state[0]`` is ``ScaleByAdamState``; the
+    schedule's count in ``opt_state[1]`` equals its count) -> ``AdamState``
+    with the moments' leaves in field order: ``(xyz, cov2d, features)`` for
+    the model, ``(scale, beta)`` for a quantizer grid."""
     dev = resolve_device(device)
+    adam = opt_state[0]
+    moments = lambda t: tuple(_t(a, dev, torch.float32) for a in _tree_leaves(t))
+    return AdamState(count=_t(np.asarray(adam.count), dev, torch.int32),
+                     mu=moments(adam.mu), nu=moments(adam.nu))
+
+
+def bundle_from_numpy(bundle, device=None) -> QuantizerBundle:
+    """An object with ``QuantizerBundle``'s fields -> ``QuantizerBundle``:
+    the grids, the VQ codebooks, and the quantizer Adam states and ``step``
+    where the object has them (a JAX QAT bundle; a decoded stream's has
+    none)."""
+    dev = resolve_device(device)
+    opts = {}
+    if getattr(bundle, "xy_opt", None) is not None:
+        opts = {k: adam_state_from_numpy(getattr(bundle, k), dev)
+                for k in ("xy_opt", "cov_opt", "color_opt")}
+        opts["step"] = _t(np.asarray(bundle.step), dev, torch.int32)
     color_vq = None
     if getattr(bundle, "color_vq", None) is not None:
         color_vq = ResidualVQState(layers=tuple(
@@ -100,7 +137,7 @@ def bundle_from_numpy(bundle, device=None) -> QuantizerBundle:
             for cb in bundle.color_vq.layers))
     return QuantizerBundle(xy=_uniform(bundle.xy, dev),
                            cov=HybridQuantParams(cov=_uniform(bundle.cov.cov, dev)),
-                           color=_uniform(bundle.color, dev), color_vq=color_vq)
+                           color=_uniform(bundle.color, dev), color_vq=color_vq, **opts)
 
 
 _PARAMS = ("xyz", "cov2d", "features")
@@ -123,7 +160,6 @@ def train_state_from_numpy(ts, device=None, seed: int = 0) -> TrainState:
     ``ts.opt_state[1]`` equals it. The JAX PRNG key is not carried over: the
     port's generator is seeded with ``seed``."""
     dev = resolve_device(device)
-    adam = ts.opt_state[0]
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     scalar = lambda a, dtype: _t(np.asarray(a), dev, dtype)
@@ -132,8 +168,7 @@ def train_state_from_numpy(ts, device=None, seed: int = 0) -> TrainState:
             {**{k: getattr(ts.gaussians.params, k) for k in _PARAMS},
              "active": ts.gaussians.active, "bound": ts.gaussians.bound,
              "num_active": ts.gaussians.num_active}, device=dev),
-        opt_state=AdamState(count=scalar(adam.count, torch.int32),
-                            mu=tuple(_params(adam.mu, dev)), nu=tuple(_params(adam.nu, dev))),
+        opt_state=adam_state_from_numpy(ts.opt_state, dev),
         generator=gen, step=scalar(ts.step, torch.int32),
         best_psnr=scalar(ts.best_psnr, torch.float32), best_iter=scalar(ts.best_iter, torch.int32),
         best_params=_params(ts.best_params, dev), best_active=_t(ts.best_active, dev, torch.bool),

@@ -1,13 +1,16 @@
-"""Quality metrics: PSNR variants.
+"""Quality metrics: PSNR variants, and SSIM / MS-SSIM re-exported.
 
-Port of ``gaussianimage_plus_tpu/train/metrics.py:15-32``: the float-MSE PSNR
-of the train loop (reference train.py:188-189, ``10*log10(1/mse)``) and the
-clamped-uint8 variants of models/metrics.py:19-46. MS-SSIM is not ported yet.
+Port of ``gaussianimage_plus_tpu/train/metrics.py``: the float-MSE PSNR of
+the train loop (reference train.py:188-189, ``10*log10(1/mse)``) and the
+clamped-uint8 variants of models/metrics.py:19-46; ``ssim`` and ``ms_ssim``
+live in ``losses``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .losses import ms_ssim, ssim  # noqa: F401 (re-export)
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,11 @@ after the imports, on seeded inputs:
   float32.
 - ``log_decompress``: the repaired decoder on the same values; reports the
   same error (0 when it equals the rounding bit for bit).
+- ``log_quantizer``: the QAT and encoder log quantizer
+  (``compress/pipeline._log_fwd_masked``, float64 ``log`` and ``exp`` rounded
+  once) on ``--size`` seeded variances; reports the largest relative error of
+  its dequantized values and of its grid's ``beta`` against the float64
+  ``exp`` / ``log`` rounded to float32 (0 when bit-equal).
 - ``render``: the plain render (``core/render_tiled.render_table``, the
   kernels' CPU reference, float32 ``exp``) of one seeded binned scene,
   twice; reports the largest difference between the first and the second.
@@ -22,6 +27,7 @@ error exceeds ``--tol`` (a correctly rounded float32 ``exp`` is within
 6e-8, MKL's within about 1.1e-7; the drift was 1.5e-4)::
 
     python -m gaussianimage_plus_tpu_torch.utils.exp_drift --runs 20 --jobs 6
+    python -m gaussianimage_plus_tpu_torch.utils.exp_drift --op log_quantizer --runs 60 --jobs 6
     python -m gaussianimage_plus_tpu_torch.utils.exp_drift --op render --runs 20 --jobs 6
 """
 
@@ -35,7 +41,7 @@ import sys
 import numpy as np
 import torch
 
-OPS = ("exp", "log_decompress", "render")
+OPS = ("exp", "log_decompress", "log_quantizer", "render")
 
 
 def _log_grid(size: int, seed: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -70,10 +76,25 @@ def _render_twice(seed: int) -> float:
     return float((first - second).abs().max())
 
 
+def _log_quantizer(size: int, seed: int) -> float:
+    from ..compress.pipeline import _log_fwd_masked
+
+    rng = np.random.default_rng(seed)
+    var = torch.as_tensor(np.exp(rng.uniform(-2.0, 6.0, (size // 2, 2))).astype(np.float32))
+    active = torch.as_tensor(rng.uniform(size=size // 2) < 0.97)
+    dq, code, grid = _log_fwd_masked(var, active, 10)
+    log_ref = torch.log((var.abs() + 1e-6).double()).float()
+    beta_ref = log_ref[active].min()
+    beta_err = float((grid.beta - beta_ref).abs() / beta_ref.abs())
+    return max(_rel_err(dq, code * grid.scale + grid.beta), beta_err)
+
+
 def child(op: str, size: int, seed: int) -> float:
     """One fresh process's error (0.0 when bit-equal to the reference)."""
     if op == "render":
         return _render_twice(seed)
+    if op == "log_quantizer":
+        return _log_quantizer(size, seed)
     code, scale, beta = _log_grid(size, seed)
     arg = code * scale + beta
     if op == "exp":

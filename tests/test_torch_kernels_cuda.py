@@ -45,6 +45,7 @@ rows and larger than one batch, a big grid where E's warps own 4 tiles, and
 two launches against each other.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -468,3 +469,88 @@ def test_chunk_backward_imbalanced_rows(card, kc):
     assert torch.equal(out, again), "kernel C: two launches differ"
     _payload_close(out, ref, f"kernel C imbalanced rows kc {kc}")
     assert not out[:n][~live[:n]].any(), "an invalid row has a gradient"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("color_quant", ["lsq", "vq"])
+def test_render_quantized_gradients_auto_vs_xla(card, color_quant):
+    """One QAT step's gradients at the fit state's shape (768x512, 5000
+    Gaussians, no tile over the cap 256) through ``'auto'`` (list_t: kernels
+    B and C) against ``'xla'`` (the plain capped path) on the card: per
+    column of each model parameter, max |auto - xla| <= 1e-4 max |xla|. Each
+    grid parameter gets one copy per row, so its gradient is a sum of per-row
+    terms that may cancel: per column, |sum auto - sum xla| <= 1e-4 sum
+    |xla's terms|. The two variances that set the log grid's min and max also
+    take its ``beta`` and ``scale`` gradients, which the straight-through
+    round makes cancel to rounding (``quant * scale + beta`` is ``log x``):
+    they are held to 1e-4 of their column's max plus 2^-20 of the sum over
+    the variances of |cotangent x dequantized value|."""
+    from gaussianimage_plus_tpu_torch.compress import pipeline as pl
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+
+    n, H, W = 5000, 512, 768
+    rng = np.random.default_rng(30)
+    a, c = rng.uniform(2.0, 60.0, n), rng.uniform(2.0, 60.0, n)
+    b = rng.uniform(-0.8, 0.8, n) * np.sqrt(a * c)
+    bound = np.tile(np.float32([[0.5, 0.0, 0.5]]), (n, 1))
+    cfg = gi.GaussianConfig(H=H, W=W, max_num_points=n)
+    state = gi.GaussianState(
+        params=gi.GaussianParams(
+            xyz=torch.as_tensor(np.stack([rng.uniform(0, W, n), rng.uniform(0, H, n)], -1)
+                                .astype(np.float32), device=card),
+            cov2d=torch.as_tensor((np.stack([a, b, c], -1) - bound).astype(np.float32), device=card),
+            features=torch.as_tensor(rng.uniform(0, 1, (n, 3)).astype(np.float32), device=card)),
+        active=torch.as_tensor(np.arange(n) < n - 40, device=card),
+        bound=torch.as_tensor(bound, device=card), num_active=torch.tensor(n - 40, device=card))
+    gt = torch.as_tensor(rng.uniform(0, 1, (H, W, 3)).astype(np.float32), device=card)
+    assert gi.resolve_backend(cfg, card) == "list_t"
+    proj = gi.project(state.params, state.active, state.bound, cfg)
+    assert int(bin_gaussians(proj, H, W, cap=257).count.max()) <= 256
+    qcfg = pl.QuantConfig(color_quant=color_quant)
+    bundle = pl.init_quantizers(state, cfg, qcfg)
+
+    def grads(backend):
+        """Gradients to the parameters and per-row grids, and the variances'
+        |cotangent x dequantized value|."""
+        params = gi.GaussianParams(*(p.detach().clone().requires_grad_(True) for p in state.params))
+        rows = lambda u: pl.UniformQuantParams(*(t.detach().expand(n, -1).clone().requires_grad_(True)
+                                                 for t in u))
+        b_ = bundle._replace(xy=rows(bundle.xy), cov=pl.HybridQuantParams(cov=rows(bundle.cov.cov)),
+                             color=rows(bundle.color))
+        st_ = state._replace(params=params)
+        means, cov_el, colors, _, _ = pl.quantize_attributes(b_, st_, cfg, qcfg)
+        img = gi.render(st_, dataclasses.replace(cfg, raster_backend=backend),
+                        cov_override=cov_el, means_override=means, colors_override=colors)
+        leaves = tuple(params) + (b_.xy.scale, b_.xy.beta, b_.cov.cov.scale, b_.cov.cov.beta,
+                                  b_.color.scale, b_.color.beta)
+        out = torch.autograd.grad(torch.mean((img - gt) ** 2), leaves + (cov_el,), allow_unused=True)
+        g = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, out)]
+        return g, float((out[-1] * cov_el.detach())[:, ::2].abs().sum())
+
+    c0 = raster_list.chunk_backward.launches
+    g_auto, _ = grads("auto")
+    assert raster_list.chunk_backward.launches == c0 + 1
+    g_xla, noise = grads("xla")
+    torch.cuda.synchronize()
+    with torch.no_grad():     # the variances at the log grid's min and max (active rows)
+        log_x = torch.log((gi.effective_cov2d(state.params, state.bound, cfg)[:, ::2].abs()
+                           + 1e-6).double())
+        big = torch.full_like(log_x, float("inf"))
+        m = state.active[:, None]
+        ends = [divmod(int(torch.argmin(torch.where(m, log_x, big))), 2),
+                divmod(int(torch.argmax(torch.where(m, log_x, -big))), 2)]
+    names = ("xyz", "cov2d", "features", "xy.scale", "xy.beta", "cov.scale", "cov.beta",
+             "color.scale", "color.beta")
+    for name, ga, gx in zip(names, g_auto, g_xla):
+        assert bool(torch.isfinite(ga).all()), name
+        if name in ("xyz", "cov2d", "features"):
+            err, scale = (ga - gx).abs(), gx.abs().amax(0)
+            if name == "cov2d":
+                for r, j in ends:
+                    assert float(err[r, 2 * j]) <= 1e-4 * float(scale[2 * j]) + 2.0 ** -20 * noise
+                    err[r, 2 * j] = 0
+            err = err.amax(0)
+        else:
+            err, scale = (ga.sum(0) - gx.sum(0)).abs(), gx.abs().sum(0)
+        assert bool((err <= 1e-4 * scale).all()), f"{name}: {err.tolist()} vs {scale.tolist()}"
+    assert float(g_xla[0].abs().max()) > 0 and float(g_xla[3].abs().sum()) > 0
