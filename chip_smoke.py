@@ -95,11 +95,35 @@ five hand-written CUDA kernels against their plain PyTorch versions. Phases:
    ``prepare_decode`` + ``decode_frame`` (A) and ``backend='list_t'`` (B) to
    images that agree to the forward tolerance; a VQ-colour run (200 QAT
    steps, encoded, written, decoded back to the encoding's PSNR); and
-   ``evaluate`` on the QAT state;
+   ``evaluate`` on the QAT state. (g) The entry points, on an 8-bit PNG of
+   the fit's target in a temporary directory: (g1) the fit CLI
+   (``scripts.train.main``, 1000 steps, 2500 -> 5000 points, growth at 500,
+   ``--save_imgs``): its ``train.txt`` lines in the JAX CLI's format, B and
+   C once a step, ``evaluate`` of its ``gaussian_model`` repeating the logged
+   PSNR, at least 20 dB; (g2) ``fit_image`` uninterrupted, stopped at 300
+   with a checkpoint every 100, and resumed: ``torch.equal`` to each other
+   and to (g1)'s ``gaussian_model``, and resume of the completed run; the
+   save and load time of a ``TrainState`` at the fit's best state; (g3) the
+   Cholesky model with Adan (the fit CLI's remap: lr 1e-3, no growth, no
+   pruning; means drawn in atanh space over the image), 1000 steps through
+   ``'auto'`` (B and C once a step, the best PSNR 3 dB above the first
+   step's), 100 steps from one start through ``'auto'`` and ``'xla'``
+   within 0.05 dB at every step, and the fit CLI with ``--model_name GaussianImage_RS``
+   for 200 steps; (g4) the quantize CLI warm-started from (g1), 100 warmup
+   and 200 QAT steps, ``--write_bitstream``: the ``.gipb`` through
+   ``decode.main`` (kernel A) and ``decode_bitstream(backend='list_t')``
+   (kernel B) within 1e-4 dB of the encoder's PSNR; (g5) the eval CLI at
+   cap 256 on (g2)'s ``fit_ckpt`` within 1e-4 dB of ``evaluate``, with a
+   random-weight LPIPS ``.npz`` whose value on the card is within 1e-4 of
+   the CPU's. (g) repeats paths whose launches phase 4 counts already: its
+   launches are reported apart (``report["phases"]["entry points"]``) and
+   left out of ``launches_by_state`` and ``loss_ms``;
 5. timing with CUDA events: per frame (median of 50 frames) of the full
    decodes (parse included), the bin-once ``decode_frame`` and a fitted-state
    render; per train step (median of 50) after the growth, through ``'auto'``
-   (kernels B and C), ``'xla'`` (the plain path) and ``'pallas'`` with
+   (kernels B and C; with Adam, then with Adan, both before the process's
+   first profiler session, and with Adam again after the profiler sessions),
+   ``'xla'`` (the plain path) and ``'pallas'`` with
    ``'top_k'`` and with kernel E binning, and the 2K step; per call (50 calls
    back to back, median of 5 runs) of each kernel, each plain version and
    ``torch.topk`` on kernel E's key (the kernels' JSON ``ms``); beside it
@@ -135,8 +159,9 @@ five hand-written CUDA kernels against their plain PyTorch versions. Phases:
 Each kernel's row in the JSON line carries ``device_ms_by_state``,
 ``ms_by_state``, ``launches_by_state``, ``bound_ms_by_state`` and
 ``loss_ms`` beside its single-state ``ms``, ``device_ms`` and ``bound_ms``.
-The last three lines of standard output are the kernels' JSON line, the
-card's ``nvidia-smi`` name and power limit, and ``{"ok": true, ...}``. Any
+The last four lines of standard output are phase (g)'s numbers, the
+kernels' JSON line, the card's ``nvidia-smi`` name and power limit, and
+``{"ok": true, ...}``. Any
 failed check exits nonzero before those lines. A fuller report is written to
 ``chiprun_out/chip_smoke_report.json``. Nothing here imports JAX or the JAX
 package.
@@ -185,6 +210,13 @@ QAT = dict(warmup_iter=100, steps=1000)
 QAT_AGREE_STEPS, VQ_STEPS, CODING_RENDERS = 100, 200, 50
 ODD_HW, ODD_FIT, ODD_RISE_DB = (496, 752), dict(iterations=200, prune_iter=100), 3.0
 K2_HW, K2_POINTS, K2_STEPS = (1344, 2040), 20_000, 100
+# phase 4 (g), the entry points: the fit CLI's schedule (the reference runs
+# 50,000 steps), the stop before its growth, the Cholesky + Adan fit's steps
+# and its rise, the RS run of the fit CLI, the quantize CLI's warmup and QAT
+# steps (the reference: 6000 and 44,000), the CLI's default points and cap
+ENTRY = dict(iterations=1000, prune_iter=100, grow_iter=500, log_every=500, stop=300,
+             adan_steps=1000, adan_rise_db=3.0, rs_iterations=200, warmup=100, qat=200)
+ENTRY_POINTS, ENTRY_MAX, ENTRY_DB = 2500, 5000, 20.0
 
 report: dict = {"phases": {}}
 
@@ -415,6 +447,261 @@ def bbox_tiles(bbox: torch.Tensor, h: int, w: int) -> torch.Tensor:
     bw = (bbox[:, 1].clamp(max=tb_x) - bbox[:, 0].clamp(min=0)).clamp(min=0)
     bh = (bbox[:, 3].clamp(max=tb_y) - bbox[:, 2].clamp(min=0)).clamp(min=0)
     return bw * bh
+
+
+def entry_points(dev, target: torch.Tensor, fit_state, kernels: dict) -> tuple:
+    """Phase 4 (g): the port's entry points as a user runs them, on an
+    8-bit PNG of ``target`` in a temporary directory. Returns the phase's
+    report and its one-line summary. Its launches repeat paths phase 4
+    counts already, so they are reported here apart and are left out of
+    ``path_launches``, ``launches_by_state`` and ``loss_ms``."""
+    from gaussianimage_plus_tpu_torch import decode as decode_cli
+    from gaussianimage_plus_tpu_torch.compress.bitstream import decode_bitstream
+    from gaussianimage_plus_tpu_torch.core.binning import bin_gaussians
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.scripts import eval_kodak, train_quantize
+    from gaussianimage_plus_tpu_torch.scripts import train as train_cli
+    from gaussianimage_plus_tpu_torch.train import lpips as lp
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+    from gaussianimage_plus_tpu_torch.train.metrics import psnr as psnr_fn
+    from gaussianimage_plus_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from gaussianimage_plus_tpu_torch.utils.image_io import load_image, save_image
+
+    E = ENTRY
+    info: dict = {}
+
+    def counts() -> dict:
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    def timed(tag: str, fn):
+        """``fn()`` with its seconds and launches per kernel under ``tag``."""
+        c0, t0 = counts(), time.perf_counter()
+        value = fn()
+        sync()
+        info[tag] = dict(seconds=time.perf_counter() - t0,
+                         launches={k: n - c0[k] for k, n in counts().items()})
+        return value
+
+    def launches(tag: str) -> str:
+        return ", ".join(f"{k.upper()} {n}" for k, n in info[tag]["launches"].items() if n)
+
+    def same_state(a, b) -> bool:
+        return (all(torch.equal(x, y) for x, y in zip(a.params, b.params))
+                and torch.equal(a.active, b.active) and torch.equal(a.num_active, b.num_active))
+
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        kodak = tmp / "kodak"
+        save_image(target, kodak / "kodim01.png")
+        gt = torch.as_tensor(load_image(kodak / "kodim01.png"), device=dev)
+        h, w = gt.shape[:2]
+        cfg = gi.GaussianConfig(H=h, W=w, max_num_points=ENTRY_MAX)
+        check(gi.resolve_backend(cfg, dev) == "list_t",
+              f"entry points: 'auto' resolved to {gi.resolve_backend(cfg, dev)!r}")
+        common = ["-d", str(kodak), "--num_images", "1", "--prune_iter", str(E["prune_iter"]),
+                  "--num_points", str(ENTRY_POINTS), "--max_num_points", str(ENTRY_MAX)]
+
+        # (g1) the fit CLI, in process
+        log(f"[4] main path (g): the entry points on an 8-bit PNG of the fit's target ({w}x{h}); "
+            f"(g1) scripts.train.main, {E['iterations']} steps, {ENTRY_POINTS} -> {ENTRY_MAX} "
+            f"points, growth at {E['grow_iter']}")
+        fit_dir = timed("fit CLI", lambda: train_cli.main(
+            [*common, "--iterations", str(E["iterations"]), "--grow_iter", str(E["grow_iter"]),
+             "--log_every", str(E["log_every"]), "--save_imgs", "--log_dir", str(tmp / "fit")]))
+        lines = (fit_dir / "train.txt").read_text().splitlines()
+        check(len(lines) == 3 and json.loads(lines[0])["iterations"] == E["iterations"],
+              f"fit CLI: train.txt holds {lines}")
+        f_ = lines[1].split("\t")
+        check(f_[:3] == ["kodim01", f"{h}x{w}", "PSNR"] and f_[4:13:2] == ["MS-SSIM", "Training",
+              "Eval", "FPS", "gs_nums"] and lines[2].startswith("Average: PSNR:"),
+              f"fit CLI: lines {lines[1:]!r} are not in the JAX CLI's format")
+        psnr_cli, train_s = float(f_[3]), float(f_[7])
+        n1 = info["fit CLI"]["launches"]
+        check(n1["c"] == E["iterations"] and n1["b"] >= E["iterations"],
+              f"fit CLI: launches {n1} in {E['iterations']} steps")
+        model, extra = load_checkpoint(fit_dir / "kodim01" / "gaussian_model", dev)
+        ev = tr.evaluate(model, gt, cfg, n_renders=1)
+        check(f"{ev['psnr']:.4f}" == f_[3], f"fit CLI: evaluate of gaussian_model gives "
+              f"{ev['psnr']:.4f} dB, the log {f_[3]}")
+        check(psnr_cli >= ENTRY_DB, f"fit CLI: PSNR {psnr_cli} under {ENTRY_DB} dB")
+        check((fit_dir / "kodim01" / "render.png").is_file(), "fit CLI: no render.png")
+        log(f"  fit CLI: PSNR {psnr_cli:.4f} dB, MS-SSIM {f_[5]}, {f_[13]} points; Training "
+            f"{train_s:.2f} s of {info['fit CLI']['seconds']:.2f} s wall; launches {launches('fit CLI')}")
+        info["fit CLI"].update(psnr=psnr_cli, ms_ssim=float(f_[5]), training_s=train_s,
+                               eval_ms=float(f_[9]) * 1e3, lines=lines[1:])
+
+        # (g2) resume on the card: uninterrupted, stopped before the growth, resumed
+        tcfg = tr.TrainConfig(iterations=E["iterations"], prune_iter=E["prune_iter"],
+                              grow_iter=E["grow_iter"])
+        fit = lambda **kw: tr.fit_image(gt, cfg, tcfg, ENTRY_POINTS, seed=FIT_SEED, device=dev, **kw)
+        ck = tmp / "eval" / "kodim01"
+        full = timed("fit, uninterrupted", fit)
+        timed("fit, stopped", lambda: fit(checkpoint_dir=str(ck), checkpoint_every=E["prune_iter"],
+                                           stop_after_iter=E["stop"]))
+        resumed = timed("fit, resumed", lambda: fit(checkpoint_dir=str(ck), resume=True))
+        p_full, p_res = full.history["psnr"], resumed.history["psnr"]
+        tail = p_full[E["stop"]:]
+        differ = (tail != p_res).nonzero() if tail.shape == p_res.shape else None
+        check(differ is not None and differ.numel() == 0,
+              f"resume: the resumed PSNRs part from the uninterrupted fit's at step "
+              f"{E['stop'] + int(differ[0]) + 1 if differ is not None and differ.numel() else '?'}")
+        check(same_state(full.state, model), "the uninterrupted fit differs from the fit CLI's "
+              "gaussian_model (two runs of one fit on the card)")
+        check(same_state(resumed.state, full.state) and resumed.best_psnr == full.best_psnr,
+              "resume: the resumed state differs from the uninterrupted fit's")
+        again = timed("fit, resume of the completed run", lambda: fit(checkpoint_dir=str(ck),
+                                                                       resume=True))
+        check(same_state(again.state, full.state) and again.history["psnr"].numel() == 0
+              and again.train_time == 0.0, "resume of the completed run")
+        # a TrainState at the 'auto' fit's best state (~4800 active): save and load
+        ts_big = tr.init_train_state(cfg, tcfg, 0, gaussians=fit_state)
+        save_s, load_s = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            save_checkpoint(tmp / "timing_ckpt", ts_big, extra={"next_iter": 0})
+            save_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            load_checkpoint(tmp / "timing_ckpt", dev)
+            sync()
+            load_s.append(time.perf_counter() - t0)
+        ckpt_bytes = (tmp / "timing_ckpt").stat().st_size
+        info["checkpoint"] = dict(save_ms=statistics.median(save_s) * 1e3,
+                                  load_ms=statistics.median(load_s) * 1e3, bytes=ckpt_bytes,
+                                  active=int(fit_state.num_active))
+        log(f"  resume: {E['iterations']} steps uninterrupted, stopped at {E['stop']} (before the "
+            f"growth at {E['grow_iter']}) and resumed: params, active, num_active and best PSNR "
+            f"{full.best_psnr:.4f} dB torch.equal, and equal to the fit CLI's gaussian_model; "
+            f"resume of the completed run returns it with an empty history. TrainState of "
+            f"{int(fit_state.num_active)} active: save {info['checkpoint']['save_ms']:.2f} ms, "
+            f"load {info['checkpoint']['load_ms']:.2f} ms (median of 5), {ckpt_bytes} bytes")
+        info["resume"] = dict(best_psnr=full.best_psnr, stop=E["stop"])
+
+        # (g3) the legacy Cholesky model with Adan, the fit CLI's remap values;
+        # its means start in atanh space over the image, as the reference's
+        # Cholesky model draws them (init_state draws pixel positions, where
+        # tanh saturates, in both packages)
+        cfg_ch = dataclasses.replace(cfg, param="cholesky")
+        tcfg_ad = tr.TrainConfig(iterations=E["adan_steps"], prune_iter=E["prune_iter"], lr=1e-3,
+                                 opt_type="adan", adaptive_add=False, prune=False)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(FIT_SEED)
+        init = gi.init_state(cfg_ch, ENTRY_POINTS, gen)
+        u = torch.rand((ENTRY_MAX, 2), generator=gen, device=dev)
+        init = init._replace(params=init.params._replace(
+            xyz=torch.atanh((2.0 * u - 1.0).clamp(-0.999, 0.999))))
+        fit_ad = timed("cholesky + Adan fit", lambda: tr.fit_image(
+            gt, cfg_ch, tcfg_ad, ENTRY_POINTS, seed=FIT_SEED, gaussians=init))
+        p_ad = fit_ad.history["psnr"].cpu().numpy()
+        n3 = info["cholesky + Adan fit"]["launches"]
+        rise = fit_ad.best_psnr - float(p_ad[0])
+        log(f"  (g3) cholesky + Adan (lr 1e-3, no growth, no pruning), {E['adan_steps']} steps: "
+            f"PSNR first {p_ad[0]:.4f}, last {p_ad[-1]:.4f}, best {fit_ad.best_psnr:.4f} dB "
+            f"(+{rise:.4f}) in {info['cholesky + Adan fit']['seconds']:.2f} s; launches "
+            f"{launches('cholesky + Adan fit')}")
+        check(n3["c"] == E["adan_steps"] and n3["b"] >= E["adan_steps"],
+              f"cholesky + Adan: launches {n3} in {E['adan_steps']} steps")
+        check(bool(np.isfinite(p_ad).all()), "cholesky + Adan: non-finite PSNR")
+        check(rise >= E["adan_rise_db"], f"cholesky + Adan: best PSNR rose {rise:.4f} dB, "
+              f"not {E['adan_rise_db']}")
+        ts0 = tr.init_train_state(cfg_ch, tcfg_ad, ENTRY_POINTS, gaussians=init)
+        g0 = ts0.gaussians
+        most = int(bin_gaussians(gi.project(g0.params, g0.active, g0.bound, cfg_ch), h, w,
+                                 cap=cfg_ch.tile_cap + 1).count.max())
+        check(most <= cfg_ch.tile_cap, f"cholesky agreement run: a tile holds {most} > cap")
+        agree_ad = {}
+        for backend in ("auto", "xla"):
+            _, m = tr.train_chunk(ts0, gt, dataclasses.replace(cfg_ch, raster_backend=backend),
+                                  tcfg_ad, AGREE_STEPS, False, False)
+            agree_ad[backend] = m["psnr"].cpu().numpy()
+        ad_db = float(np.abs(agree_ad["auto"] - agree_ad["xla"]).max())
+        log(f"  {AGREE_STEPS} cholesky + Adan steps 'auto' vs 'xla' (at most {most} in a tile): "
+            f"at most {ad_db:.3g} dB apart")
+        check(ad_db <= AGREE_DB, f"cholesky + Adan: 'auto' and 'xla' differ by {ad_db:.3g} dB")
+        info["cholesky + Adan fit"].update(psnr_first=float(p_ad[0]), psnr_last=float(p_ad[-1]),
+                                           best_psnr=fit_ad.best_psnr, rise_db=rise,
+                                           auto_vs_xla_max_db=ad_db)
+        rs_dir = timed("RS CLI", lambda: train_cli.main(
+            [*common, "--model_name", "GaussianImage_RS", "--iterations", str(E["rs_iterations"]),
+             "--log_every", str(E["rs_iterations"]), "--log_dir", str(tmp / "rs")]))
+        rs_lines = (rs_dir / "train.txt").read_text().splitlines()
+        rs_args, rs_f = json.loads(rs_lines[0]), rs_lines[1].split("\t")
+        n_rs = info["RS CLI"]["launches"]
+        check((rs_args["opt_type"], rs_args["lr"], rs_args["prune"]) == ("adan", 0.001, False)
+              and np.isfinite(float(rs_f[3])) and n_rs["c"] == E["rs_iterations"],
+              f"RS CLI: {rs_lines[:2]}, launches {n_rs}")
+        info["RS CLI"].update(psnr=float(rs_f[3]))
+        log(f"  GaussianImage_RS through the fit CLI (Adan, lr 1e-3), {E['rs_iterations']} steps: "
+            f"PSNR {float(rs_f[3]):.4f} dB; launches {launches('RS CLI')}")
+
+        # (g4) the quantize CLI, warm-started from (g1), writing the .gipb
+        q_dir, q_stats = timed("quantize CLI", lambda: train_quantize.main(
+            [*common, "--iterations", str(E["warmup"] + E["qat"]), "--warmup_iter",
+             str(E["warmup"]), "--model_path", str(fit_dir), "--write_bitstream",
+             "--log_dir", str(tmp / "quant"), "--log_every", str(E["prune_iter"])]))
+        q_lines = (q_dir / "train.txt").read_text().splitlines()
+        check(f"warm-start from {fit_dir / 'kodim01' / 'gaussian_model'}" in q_lines,
+              "quantize CLI: no warm-start line")
+        q_line = next(x for x in q_lines if x.startswith("kodim01 Eval time:"))
+        q = q_stats["kodim01"]
+        check(all(np.isfinite(q[k]) for k in ("psnr", "ms_ssim", "bpp")),
+              f"quantize CLI: {q_line}")
+        n_q = info["quantize CLI"]["launches"]
+        check(n_q["c"] == E["warmup"] + E["qat"], f"quantize CLI: launches {n_q}")
+        gipb = tmp / "quant" / "kodim01.gipb"
+        data = gipb.read_bytes()
+        timed("decode CLI", lambda: decode_cli.main([str(gipb), "-o", str(tmp / "decoded.png")]))
+        img_a, _ = decode_bitstream(data, device=dev)
+        img_b = timed("decode list_t", lambda: decode_bitstream(data, backend="list_t",
+                                                                device=dev)[0])
+        psnr_a, psnr_b = float(psnr_fn(img_a, gt)), float(psnr_fn(img_b, gt))
+        n_da, n_db = info["decode CLI"]["launches"], info["decode list_t"]["launches"]
+        log(f"  (g4) quantize CLI: {E['warmup']} warmup + {E['qat']} QAT steps: PSNR "
+            f"{q['psnr']:.4f} dB, MS-SSIM {q['ms_ssim']:.5f}, bpp {q['bpp']:.5f}, bpp_stream "
+            f"{q['bpp_stream']:.5f} ({len(data)} bytes) in {info['quantize CLI']['seconds']:.2f} s; "
+            f"the .gipb through decode.main (A {n_da['a']}) {psnr_a:.6f} dB and list_t (B "
+            f"{n_db['b']}) {psnr_b:.6f} dB")
+        check(n_da["a"] > 0 and n_db["b"] > 0, f"decode launches {n_da}, {n_db}")
+        check(max(abs(psnr_a - q["psnr"]), abs(psnr_b - q["psnr"])) <= 1e-4,
+              f"the .gipb decodes to {psnr_a} / {psnr_b} dB, the encoder's PSNR is {q['psnr']}")
+        info["quantize CLI"].update(psnr=q["psnr"], ms_ssim=q["ms_ssim"], bpp=q["bpp"],
+                                    bpp_stream=q["bpp_stream"], decode_psnr_a=psnr_a,
+                                    decode_psnr_b=psnr_b, line=q_line)
+
+        # (g5) the eval CLI on (g2)'s fit_ckpt, with random-weight LPIPS
+        npz = tmp / "lpips.npz"
+        lp.save_npz(str(npz), lp.random_params(torch.Generator().manual_seed(0)))
+        rows = timed("eval CLI", lambda: eval_kodak.main(
+            ["--dataset", str(kodak), "--ckpt_dir", str(tmp / "eval"), "--tile_cap", "256",
+             "--max_num_points", str(ENTRY_MAX), "--lpips_weights", str(npz),
+             "--out", str(tmp / "eval.json")]))
+        check(len(rows) == 1 and info["eval CLI"]["launches"]["a"] > 0,
+              f"eval CLI: rows {rows}, launches {info['eval CLI']['launches']}")
+        ts_e, _ = load_checkpoint(ck / "fit_ckpt", dev)
+        best = tr.restore_best(ts_e)
+        cfg_cap = dataclasses.replace(cfg, tile_cap=256, raster_backend="pallas")
+        ev_e = tr.evaluate(best, gt, cfg_cap, n_renders=1, lpips_weights=str(npz))
+        with torch.no_grad():
+            img_e = gi.render(best, cfg_cap)
+        lpips_cpu = float(lp.lpips(img_e.cpu(), gt.cpu(), lp.params_from_npz(str(npz), "cpu")))
+        r = rows[0]
+        log(f"  (g5) eval CLI at cap 256: PSNR {r['psnr']:.6f} dB (evaluate {ev_e['psnr']:.6f}), "
+            f"MS-SSIM {r['ms_ssim']:.5f}, LPIPS (random weights) {r['lpips']:.7f} on the card, "
+            f"{lpips_cpu:.7f} on the CPU")
+        check(abs(r["psnr"] - ev_e["psnr"]) <= 1e-4, f"eval CLI: {r['psnr']} vs evaluate "
+              f"{ev_e['psnr']}")
+        check(np.isfinite(r["lpips"]) and abs(r["lpips"] - lpips_cpu) <= 1e-4
+              and abs(ev_e["lpips"] - r["lpips"]) <= 1e-4,
+              f"LPIPS: card {r['lpips']}, evaluate {ev_e['lpips']}, CPU {lpips_cpu}")
+        info["eval CLI"].update(psnr=r["psnr"], evaluate_psnr=ev_e["psnr"], lpips=r["lpips"],
+                                lpips_cpu=lpips_cpu)
+
+    line = ("entry points (not in loss_ms): fit CLI {:.4f} dB in {:.1f} s; resume torch.equal; "
+            "cholesky + Adan +{:.3f} dB, 'auto' vs 'xla' {:.3g} dB; TrainState save {:.2f} / "
+            "load {:.2f} ms; quantize CLI {:.4f} dB, {:.5f} bpp; eval CLI {:.4f} dB, "
+            "LPIPS {:.6f}").format(
+        psnr_cli, info["fit CLI"]["seconds"], rise, ad_db, info["checkpoint"]["save_ms"],
+        info["checkpoint"]["load_ms"], q["psnr"], q["bpp"], r["psnr"], r["lpips"])
+    return info, line
 
 
 def nvidia_smi_line() -> str:
@@ -1186,6 +1473,10 @@ def run() -> None:
     check(psnr >= 80.0 and float(d.max()) <= 5e-3 and frac <= 0.01,
           "kodim01 decode disagrees with the dense oracle")
 
+    # (g) the entry points: launches reported apart, not in path_launches
+    report["phases"]["entry points"], entry_line = entry_points(dev, fit_target, res.state,
+                                                                kernels)
+
     # ---- 5. timing
     log(f"[5] times on the card, CUDA events: per frame, median of {FRAMES} frames; "
         f"kernels and plain versions per call, {FRAMES} calls back to back, median of 5 runs")
@@ -1222,6 +1513,20 @@ def run() -> None:
 
     n_timed = int(ts_t.gaussians.num_active)
     times[f"train step, {n_timed} active, auto (list_t)"] = step_ms = median_ms(one_step)
+    # the same step with Adan (the legacy models' optimizer), timed next to
+    # Adam's and, like it, before the first profiler session of the process
+    tcfg_adan = dataclasses.replace(tcfg, opt_type="adan")
+    tx_adan = tr.make_optimizer(tcfg_adan)
+    cur_adan = [tr._morton_resort(tr.init_train_state(cfg_fit, tcfg_adan, 0, gaussians=res.state),
+                                  cfg_fit)]
+
+    def one_step_adan():
+        cur_adan[0] = tr.train_step(cur_adan[0], fit_target, cfg_fit, tcfg_adan, tx_adan)[0]
+
+    times[f"train step, {n_timed} active, auto (list_t), Adan"] = step_adan_ms = median_ms(
+        one_step_adan)
+    log(f"  train step, {n_timed} active, auto (list_t): Adam {step_ms:.4f} ms, Adan "
+        f"{step_adan_ms:.4f} ms")
     # kernel C at the timed fit's shapes, with the L2 cotangent of its render
     g_t = ts_t.gaussians
     proj_t, col_t = gi.project(g_t.params, g_t.active, g_t.bound, cfg_fit), gi.colors_of(g_t.params, cfg_fit)
@@ -1337,6 +1642,8 @@ def run() -> None:
     times[f"train step, {n_timed} active, xla (plain)"] = step_xla_ms = median_ms(one_step_xla)
     log(f"  train step, {n_timed} active, xla (plain): {step_xla_ms:.4f} ms")
     steps = [("auto (list_t)", one_step, step_ms, names_b + ["chunk_backward_kernel"]),
+             ("auto (list_t), Adan", one_step_adan, step_adan_ms,
+              names_b + ["chunk_backward_kernel"]),
              ("xla (plain)", one_step_xla, step_xla_ms, [])]
 
     def stepper(state, cfg, target):
@@ -1377,6 +1684,16 @@ def run() -> None:
         report.setdefault("train_step_device_time", {})[tag] = dict(
             busy_ms=busy, step_ms=ms_step, active=n_timed, top=top, gathers=gathers,
             not_traced=missing)
+    # the Adam step again, after the profiler sessions above: host time that
+    # a profiler session leaves behind shows here
+    times[f"train step, {n_timed} active, auto (list_t), after the profiler"] = step_after_ms = \
+        median_ms(one_step)
+    log(f"  train step, {n_timed} active, auto (list_t), after the profiler sessions: "
+        f"{step_after_ms:.4f} ms (before: {step_ms:.4f})")
+    step_dt = report["train_step_device_time"]
+    entry_line += (f"; Adan step {step_adan_ms:.4f} ms (busy "
+                   f"{step_dt['auto (list_t), Adan']['busy_ms']:.4f}), Adam {step_ms:.4f} ms "
+                   f"(busy {step_dt['auto (list_t)']['busy_ms']:.4f})")
 
     # where a full decode's time goes: device time per frame under torch.profiler
     for backend, names in (("binned", names_a), ("list_t", names_b)):
@@ -1706,6 +2023,7 @@ def run() -> None:
         row.update(state_keys(key))
     report["kernels"] = kernel_rows
     write_report()
+    log(entry_line)
     log(json.dumps({"kernels": kernel_rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

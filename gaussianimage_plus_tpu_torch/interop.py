@@ -14,10 +14,12 @@ objects on a device, so both packages can compute from identical inputs:
   quantizer Adam states and ``step``) -> ``Encoding`` / ``QuantizerBundle``;
 - ``adam_state_from_numpy``: optax's Adam chain state over any tree of
   parameters -> the port's ``AdamState`` (the tree's leaves in field order);
+  ``adan_state_from_numpy``: the JAX ``AdanState`` -> the port's;
 - ``train_state_from_numpy``: an object shaped like the JAX ``TrainState``
-  (``gaussians``, ``opt_state`` = optax's Adam chain state, ``step``, the best
-  snapshot) -> the port's ``TrainState``; ``train_state_to_numpy`` goes back,
-  to a flat dict of numpy arrays named as ``TRAIN_STATE_KEYS`` lists.
+  (``gaussians``, ``opt_state`` = optax's Adam chain state or a bare
+  ``AdanState``, ``step``, the best snapshot) -> the port's ``TrainState``;
+  ``train_state_to_numpy`` goes back, to a flat dict of numpy arrays named as
+  ``TRAIN_STATE_KEYS`` (Adam) or ``ADAN_TRAIN_STATE_KEYS`` lists.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from .compress.quantizers import HybridQuantParams, LogQuantState, UniformQuantP
 from .compress.residual_vq import ResidualVQState, VQCodebook
 from .core.precision import resolve_device
 from .models.gaussian_image import GaussianConfig, GaussianParams, GaussianState
-from .train.optim import AdamState
+from .train.optim import AdamState, AdanState
 from .train.trainer import TrainState
 
 
@@ -117,6 +119,15 @@ def adam_state_from_numpy(opt_state, device=None) -> AdamState:
                      mu=moments(adam.mu), nu=moments(adam.nu))
 
 
+def adan_state_from_numpy(opt_state, device=None) -> AdanState:
+    """The JAX ``AdanState`` (``count`` and four moments, each with the
+    parameters' fields) -> ``AdanState``."""
+    dev = resolve_device(device)
+    moments = lambda t: tuple(_t(a, dev, torch.float32) for a in _tree_leaves(t))
+    return AdanState(count=_t(np.asarray(opt_state.count), dev, torch.int32),
+                     **{k: moments(getattr(opt_state, k)) for k in AdanState._fields[1:]})
+
+
 def bundle_from_numpy(bundle, device=None) -> QuantizerBundle:
     """An object with ``QuantizerBundle``'s fields -> ``QuantizerBundle``:
     the grids, the VQ codebooks, and the quantizer Adam states and ``step``
@@ -141,11 +152,14 @@ def bundle_from_numpy(bundle, device=None) -> QuantizerBundle:
 
 
 _PARAMS = ("xyz", "cov2d", "features")
+_BEST = (("step", "best_psnr", "best_iter") + tuple(f"best_{k}" for k in _PARAMS)
+         + ("best_active", "best_bound", "best_num_active"))
 TRAIN_STATE_KEYS = (
     _PARAMS + ("active", "bound", "num_active", "adam_count")
-    + tuple(f"mu_{k}" for k in _PARAMS) + tuple(f"nu_{k}" for k in _PARAMS)
-    + ("step", "best_psnr", "best_iter") + tuple(f"best_{k}" for k in _PARAMS)
-    + ("best_active", "best_bound", "best_num_active"))
+    + tuple(f"mu_{k}" for k in _PARAMS) + tuple(f"nu_{k}" for k in _PARAMS) + _BEST)
+ADAN_TRAIN_STATE_KEYS = (
+    _PARAMS + ("active", "bound", "num_active", "adan_count")
+    + tuple(f"{m}_{k}" for m in AdanState._fields[1:] for k in _PARAMS) + _BEST)
 
 
 def _params(p, dev) -> GaussianParams:
@@ -155,9 +169,10 @@ def _params(p, dev) -> GaussianParams:
 def train_state_from_numpy(ts, device=None, seed: int = 0) -> TrainState:
     """An object with the JAX ``TrainState``'s fields -> ``TrainState``.
 
-    ``ts.opt_state[0]`` is optax's ``ScaleByAdamState`` (``count``, ``mu``,
-    ``nu``, each moment with the parameters' fields); the schedule's count in
-    ``ts.opt_state[1]`` equals it. The JAX PRNG key is not carried over: the
+    ``ts.opt_state`` is a JAX ``AdanState`` (it has ``exp_avg``), or optax's
+    Adam chain, whose ``[0]`` is ``ScaleByAdamState`` (``count``, ``mu``,
+    ``nu``, each moment with the parameters' fields) and whose schedule's
+    count in ``[1]`` equals it. The JAX PRNG key is not carried over: the
     port's generator is seeded with ``seed``."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -168,7 +183,8 @@ def train_state_from_numpy(ts, device=None, seed: int = 0) -> TrainState:
             {**{k: getattr(ts.gaussians.params, k) for k in _PARAMS},
              "active": ts.gaussians.active, "bound": ts.gaussians.bound,
              "num_active": ts.gaussians.num_active}, device=dev),
-        opt_state=adam_state_from_numpy(ts.opt_state, dev),
+        opt_state=(adan_state_from_numpy(ts.opt_state, dev) if hasattr(ts.opt_state, "exp_avg")
+                   else adam_state_from_numpy(ts.opt_state, dev)),
         generator=gen, step=scalar(ts.step, torch.int32),
         best_psnr=scalar(ts.best_psnr, torch.float32), best_iter=scalar(ts.best_iter, torch.int32),
         best_params=_params(ts.best_params, dev), best_active=_t(ts.best_active, dev, torch.bool),
@@ -177,14 +193,20 @@ def train_state_from_numpy(ts, device=None, seed: int = 0) -> TrainState:
 
 
 def train_state_to_numpy(ts: TrainState) -> dict:
-    """``TrainState`` -> {name: numpy array} over ``TRAIN_STATE_KEYS``."""
+    """``TrainState`` -> {name: numpy array} over ``TRAIN_STATE_KEYS`` (an
+    Adam state) or ``ADAN_TRAIN_STATE_KEYS`` (an Adan state)."""
     gs, opt = ts.gaussians, ts.opt_state
+    is_adan = isinstance(opt, AdanState)
     out = {k: getattr(gs.params, k) for k in _PARAMS}
-    out.update(active=gs.active, bound=gs.bound, num_active=gs.num_active, adam_count=opt.count,
+    out.update(active=gs.active, bound=gs.bound, num_active=gs.num_active,
                step=ts.step, best_psnr=ts.best_psnr, best_iter=ts.best_iter,
                best_active=ts.best_active, best_bound=ts.best_bound,
                best_num_active=ts.best_num_active)
+    out["adan_count" if is_adan else "adam_count"] = opt.count
+    for m in opt._fields[1:]:
+        for i, k in enumerate(_PARAMS):
+            out[f"{m}_{k}"] = getattr(opt, m)[i]
     for i, k in enumerate(_PARAMS):
-        out[f"mu_{k}"], out[f"nu_{k}"] = opt.mu[i], opt.nu[i]
         out[f"best_{k}"] = ts.best_params[i]
-    return {k: out[k].detach().cpu().numpy() for k in TRAIN_STATE_KEYS}
+    keys = ADAN_TRAIN_STATE_KEYS if is_adan else TRAIN_STATE_KEYS
+    return {k: out[k].detach().cpu().numpy() for k in keys}

@@ -1,7 +1,8 @@
-"""8-bit PNG read/write with ``zlib`` + ``struct`` (no PIL dependency).
+"""8-bit PNG read/write with ``zlib`` + ``struct`` (no PIL dependency), and
+the training log writer.
 
 Counterpart of ``gaussianimage_plus_tpu/utils/image_io.py`` (``load_image``,
-``save_image``; reference utils.py:11-27). Images are [H, W, 3] float32 in
+``save_image``, ``LogWriter``; reference utils.py:11-42). Images are [H, W, 3] float32 in
 [0, 1]. The writer emits 8-bit RGB; the reader takes non-interlaced 8-bit
 grey, grey+alpha, RGB or RGBA with any of the five PNG row filters.
 """
@@ -103,3 +104,17 @@ def load_image(path) -> np.ndarray:
     if ch <= 2:
         px = np.repeat(px[:, :, :1], 3, axis=2)
     return px[:, :, :3]
+
+
+class LogWriter:
+    """print, and append to ``<file_path>/train.txt`` (``test.txt`` with
+    ``train=False``), as the reference's utils.py:32-42."""
+
+    def __init__(self, file_path, train: bool = True):
+        os.makedirs(file_path, exist_ok=True)
+        self.file_path = os.path.join(file_path, "train.txt" if train else "test.txt")
+
+    def write(self, text: str) -> None:
+        print(text, flush=True)
+        with open(self.file_path, "a") as f:
+            f.write(text + "\n")

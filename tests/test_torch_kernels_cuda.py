@@ -554,3 +554,83 @@ def test_render_quantized_gradients_auto_vs_xla(card, color_quant):
             err, scale = (ga.sum(0) - gx.sum(0)).abs(), gx.abs().sum(0)
         assert bool((err <= 1e-4 * scale).all()), f"{name}: {err.tolist()} vs {scale.tolist()}"
     assert float(g_xla[0].abs().max()) > 0 and float(g_xla[3].abs().sum()) > 0
+
+
+@pytest.mark.cuda
+def test_fit_resume_is_bit_equal(card, tmp_path):
+    """A 200-step ``'auto'`` fit (kernels B and C, growth at 100, a prune
+    every 50) stopped at 50 and resumed from its checkpoint equals the
+    uninterrupted fit bit for bit: the generator rides in the checkpoint and
+    every operation of the step is deterministic on the card."""
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    H = W = 256
+    cfg = gi.GaussianConfig(H=H, W=W, max_num_points=400)
+    assert gi.resolve_backend(cfg, card) == "list_t"
+    tcfg = tr.TrainConfig(iterations=200, grow_iter=100, prune_iter=50, lr=0.02)
+    gt = torch.as_tensor(np.random.default_rng(31).uniform(0, 1, (H, W, 3)).astype(np.float32),
+                         device=card)
+    fit = lambda **kw: tr.fit_image(gt, cfg, tcfg, 200, seed=5, device=card, **kw)
+    c0 = raster_list.chunk_backward.launches
+    full = fit()
+    assert raster_list.chunk_backward.launches == c0 + 200
+    ck = str(tmp_path / "ck")
+    fit(checkpoint_dir=ck, checkpoint_every=50, stop_after_iter=50)
+    resumed = fit(checkpoint_dir=ck, resume=True)
+    assert int(full.history["n_added"].sum()) > 0
+    assert torch.equal(resumed.history["psnr"], full.history["psnr"][50:])
+    for name, a, b in zip(("xyz", "cov2d", "features"), resumed.state.params, full.state.params):
+        assert torch.equal(a, b), name
+    assert torch.equal(resumed.state.active, full.state.active)
+    assert torch.equal(resumed.state.num_active, full.state.num_active)
+    assert resumed.best_psnr == full.best_psnr
+
+
+@pytest.mark.cuda
+def test_adan_cholesky_step_auto_vs_xla(card):
+    """One Adan step of the legacy Cholesky model at 768x512 with 3000
+    Gaussians (no tile over the cap 256): the gradients through ``'auto'``
+    (list_t: kernels B and C) against ``'xla'`` (the plain capped path), per
+    parameter column, max |auto - xla| <= 1e-4 max |xla| (kernel C's
+    tolerance); then the step itself runs through ``'auto'``, B and C once."""
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.train import losses
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    n, H, W = 3000, 512, 768
+    rng = np.random.default_rng(32)
+    cfg = gi.GaussianConfig(H=H, W=W, max_num_points=n, param="cholesky")
+    bound = np.tile(np.float32([[0.5, 0.0, 0.5]]), (n, 1))
+    chol = np.stack([rng.uniform(1.0, 5.0, n), rng.uniform(-1.0, 1.0, n),
+                     rng.uniform(1.0, 5.0, n)], -1)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=card)
+    state = gi.GaussianState(
+        params=gi.GaussianParams(xyz=t(rng.uniform(-1.5, 1.5, (n, 2))), cov2d=t(chol - bound),
+                                 features=t(rng.uniform(0, 1, (n, 3)))),
+        active=torch.as_tensor(np.arange(n) < n - 30, device=card), bound=t(bound),
+        num_active=torch.tensor(n - 30, dtype=torch.int32, device=card))
+    gt = t(rng.uniform(0, 1, (H, W, 3)))
+    assert gi.resolve_backend(cfg, card) == "list_t"
+    proj = gi.project(state.params, state.active, state.bound, cfg)
+    assert int(bin_gaussians(proj, H, W, cap=257).count.max()) <= 256
+
+    def grads(backend):
+        params = gi.GaussianParams(*(p.detach().clone().requires_grad_(True) for p in state.params))
+        img = gi.render(state._replace(params=params), dataclasses.replace(cfg, raster_backend=backend))
+        return torch.autograd.grad(losses.loss_fn(img, gt, "L2", 0.7), params)
+
+    g_auto, g_xla = grads("auto"), grads("xla")
+    for name, ga, gx in zip(("xyz", "cov2d", "features"), g_auto, g_xla):
+        assert bool(torch.isfinite(ga).all()), name
+        err, scale = (ga - gx).abs().amax(0), gx.abs().amax(0)
+        assert bool((scale > 0).all()), name
+        assert bool((err <= 1e-4 * scale).all()), f"{name}: {err.tolist()} vs {scale.tolist()}"
+    tcfg = tr.TrainConfig(lr=1e-3, opt_type="adan", adaptive_add=False, prune=False)
+    tx = tr.make_optimizer(tcfg)
+    ts = tr.init_train_state(cfg, tcfg, n, gaussians=state)
+    b0, c0 = raster_list.chunk_list_forward.launches, raster_list.chunk_backward.launches
+    ts, (loss, psnr, _) = tr.train_step(ts, gt, cfg, tcfg, tx)
+    assert raster_list.chunk_backward.launches == c0 + 1
+    assert raster_list.chunk_list_forward.launches == b0 + 1
+    assert int(ts.opt_state.count) == 1 and bool(torch.isfinite(psnr))

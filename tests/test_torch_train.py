@@ -212,8 +212,9 @@ def test_metrics_and_losses_match_jax():
         np.testing.assert_allclose(float(tlosses.loss_fn(ta, tb, lt)),
                                    float(jlosses.loss_fn(jnp.asarray(a), jnp.asarray(b), lt)),
                                    rtol=0, atol=1e-5, err_msg=lt)
-    with pytest.raises(NotImplementedError):
-        ttr.make_optimizer(ttr.TrainConfig(opt_type="adan"))
+    assert isinstance(ttr.make_optimizer(ttr.TrainConfig(opt_type="adan")), toptim.Adan)
+    with pytest.raises(ValueError):
+        ttr.make_optimizer(ttr.TrainConfig(opt_type="sgd"))
 
 
 def _pair(H, W, M, backend, **kw):
