@@ -117,7 +117,27 @@ five hand-written CUDA kernels against their plain PyTorch versions. Phases:
    random-weight LPIPS ``.npz`` whose value on the card is within 1e-4 of
    the CPU's. (g) repeats paths whose launches phase 4 counts already: its
    launches are reported apart (``report["phases"]["entry points"]``) and
-   left out of ``launches_by_state`` and ``loss_ms``;
+   left out of ``launches_by_state`` and ``loss_ms``. Then, in a NCCL
+   process group of one: (p1) ``parallel.fit_batch`` of the renders of the
+   first four landscape committed states (``repr_states_plain/kodim01``,
+   ``02``, ``03``, ``05``), seeds 3047-3050,
+   ``'auto'`` (kernels B and C), 500 steps with a prune every 50 and the
+   growth at 250: each image's final parameters and active set
+   ``torch.equal`` to the same chunk schedule run on it alone, each best PSNR
+   5 dB above its first step's; (p2) 100 steps through
+   ``make_tile_sharded_render`` and through ``'xla'`` from one state, within
+   0.05 dB at every step, and ``fit_image_tile_sharded`` (200 steps, a prune
+   every 100, the growth at 100) rising 5 dB, with its step time and peak
+   memory; (p3) the 2K fit's state through one sharded render with
+   ``bin_method='hier'`` (band budget 4096): within 1e-5 of the unsharded
+   ``'xla'`` render (flat ``'top_k'`` bins), ``super_overflow`` 0, its
+   gradient within 1e-4 of each column's max of the unsharded one; (l1) the legacy 3DGS model at 768x512 (5000 points, SH
+   degree 3): 20 steps on the card and on the CPU from one start within 0.05
+   dB at every step, then 300 Adam steps on the card (the loss falls, the
+   PSNR rises), its step time and device busy share; (l2)
+   ``pixel_count_map`` at the fit state on the card against the CPU's (at
+   most 0.01% of pixels differ). Their launches are reported apart too
+   (``report["phases"]["parallel"]``, ``["legacy"]``);
 5. timing with CUDA events: per frame (median of 50 frames) of the full
    decodes (parse included), the bin-once ``decode_frame`` and a fitted-state
    render; per train step (median of 50) after the growth, through ``'auto'``
@@ -159,9 +179,9 @@ five hand-written CUDA kernels against their plain PyTorch versions. Phases:
 Each kernel's row in the JSON line carries ``device_ms_by_state``,
 ``ms_by_state``, ``launches_by_state``, ``bound_ms_by_state`` and
 ``loss_ms`` beside its single-state ``ms``, ``device_ms`` and ``bound_ms``.
-The last four lines of standard output are phase (g)'s numbers, the
-kernels' JSON line, the card's ``nvidia-smi`` name and power limit, and
-``{"ok": true, ...}``. Any
+The last five lines of standard output are phase (g)'s numbers, phases
+(p) and (l)'s, the kernels' JSON line, the card's ``nvidia-smi`` name and
+power limit, and ``{"ok": true, ...}``. Any
 failed check exits nonzero before those lines. A fuller report is written to
 ``chiprun_out/chip_smoke_report.json``. Nothing here imports JAX or the JAX
 package.
@@ -217,6 +237,18 @@ K2_HW, K2_POINTS, K2_STEPS = (1344, 2040), 20_000, 100
 ENTRY = dict(iterations=1000, prune_iter=100, grow_iter=500, log_every=500, stop=300,
              adan_steps=1000, adan_rise_db=3.0, rs_iterations=200, warmup=100, qat=200)
 ENTRY_POINTS, ENTRY_MAX, ENTRY_DB = 2500, 5000, 20.0
+# phase 4 (p), parallel/ in a NCCL group of one: fit_batch's images and schedule
+# (the growth at 250 has to end a chunk, so a prune every 50), the sharded
+# step's agreement steps, the sharded fit's schedule (growth at 100); the rise
+# each must show; the 2K render's band budget (a full-width band of 4 tile rows
+# of the 2K grid can hold more candidates than the default 1024)
+PAR = dict(images=4, max_points=5000, iterations=500, prune_iter=50, grow_iter=250, rise_db=5.0,
+           agree_steps=100, fit=dict(iterations=200, prune_iter=100, grow_iter=100),
+           fit_rise_db=5.0, super_cap_2k=4096)
+# phase 4 (l), the legacy 3DGS model at 768x512: points, SH degree, the steps
+# held card against CPU, the Adam steps on the card; the pixel-count ties allowed
+LEGACY = dict(points=5000, sh_degree=3, agree_steps=20, steps=300)
+COUNT_FRAC = 1e-4
 
 report: dict = {"phases": {}}
 
@@ -449,6 +481,29 @@ def bbox_tiles(bbox: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return bw * bh
 
 
+class LaunchBook:
+    """Seconds and kernel launches of tagged calls, kept in ``info`` apart
+    from phase 4's path launches (the phases that repeat counted paths)."""
+
+    def __init__(self, kernels: dict):
+        self.kernels, self.info = kernels, {}
+
+    def counts(self) -> dict:
+        return {k: fn.launches for k, fn in self.kernels.items()}
+
+    def timed(self, tag: str, fn):
+        """``fn()`` with its seconds and launches per kernel under ``tag``."""
+        c0, t0 = self.counts(), time.perf_counter()
+        value = fn()
+        sync()
+        self.info[tag] = dict(seconds=time.perf_counter() - t0,
+                              launches={k: n - c0[k] for k, n in self.counts().items()})
+        return value
+
+    def launches(self, tag: str) -> str:
+        return ", ".join(f"{k.upper()} {n}" for k, n in self.info[tag]["launches"].items() if n)
+
+
 def entry_points(dev, target: torch.Tensor, fit_state, kernels: dict) -> tuple:
     """Phase 4 (g): the port's entry points as a user runs them, on an
     8-bit PNG of ``target`` in a temporary directory. Returns the phase's
@@ -468,22 +523,8 @@ def entry_points(dev, target: torch.Tensor, fit_state, kernels: dict) -> tuple:
     from gaussianimage_plus_tpu_torch.utils.image_io import load_image, save_image
 
     E = ENTRY
-    info: dict = {}
-
-    def counts() -> dict:
-        return {k: fn.launches for k, fn in kernels.items()}
-
-    def timed(tag: str, fn):
-        """``fn()`` with its seconds and launches per kernel under ``tag``."""
-        c0, t0 = counts(), time.perf_counter()
-        value = fn()
-        sync()
-        info[tag] = dict(seconds=time.perf_counter() - t0,
-                         launches={k: n - c0[k] for k, n in counts().items()})
-        return value
-
-    def launches(tag: str) -> str:
-        return ", ".join(f"{k.upper()} {n}" for k, n in info[tag]["launches"].items() if n)
+    book = LaunchBook(kernels)
+    info, timed, launches = book.info, book.timed, book.launches
 
     def same_state(a, b) -> bool:
         return (all(torch.equal(x, y) for x, y in zip(a.params, b.params))
@@ -702,6 +743,255 @@ def entry_points(dev, target: torch.Tensor, fit_state, kernels: dict) -> tuple:
         psnr_cli, info["fit CLI"]["seconds"], rise, ad_db, info["checkpoint"]["save_ms"],
         info["checkpoint"]["load_ms"], q["psnr"], q["bpp"], r["psnr"], r["lpips"])
     return info, line
+
+
+def parallel_and_legacy(dev, fit_target: torch.Tensor, fit_state, state2k, cfg2k,
+                        target2k: torch.Tensor, kernels: dict) -> tuple:
+    """Phase 4 (p) and (l): ``parallel/`` in a process group of one (the
+    caller's NCCL group), the legacy 3DGS model and ``pixel_count_map``.
+    Returns the two phases' reports and a one-line summary. Their launches
+    (kernels B and C in ``fit_batch``) repeat the fit path's, so they are
+    reported here apart, as phase (g)'s are."""
+    from gaussianimage_plus_tpu_torch.core.binning import bin_gaussian_rows_hier
+    from gaussianimage_plus_tpu_torch.core.gaussian2d import tile_bounds_for
+    from gaussianimage_plus_tpu_torch.interop import config_from_numpy, state_from_numpy
+    from gaussianimage_plus_tpu_torch.models import gaussian_3d as g3
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.parallel import sharded as psh
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+    from gaussianimage_plus_tpu_torch.utils.visualize import pixel_count_map
+
+    book = LaunchBook(kernels)
+    P = PAR
+
+    def same(a, b) -> bool:
+        return (all(torch.equal(x, y) for x, y in zip(a.gaussians.params, b.gaussians.params))
+                and torch.equal(a.gaussians.active, b.gaussians.active))
+
+    def peak_gb(fn):
+        torch.cuda.reset_peak_memory_stats()
+        value = fn()
+        sync()
+        return value, torch.cuda.max_memory_allocated() / 1e9
+
+    # (p1) fit_batch: 4 images, one Gaussian set each, against each run alone
+    h, w = fit_target.shape[:2]
+    cfg = gi.GaussianConfig(H=h, W=w, max_num_points=P["max_points"])
+    check(gi.resolve_backend(cfg, dev) == "list_t",
+          f"fit_batch: 'auto' resolved to {gi.resolve_backend(cfg, dev)!r}")
+    names, targets = [], []
+    with torch.no_grad():
+        for path in sorted((ROOT / "results" / "repr_states_plain").glob("*.npz")):
+            d = dict(np.load(path))
+            # the landscape states: the portraits are 512 wide
+            if len(names) < P["images"] and int(d["H"]) >= h and int(d["W"]) >= w:
+                names.append(path.stem)
+                targets.append(gi.render(state_from_numpy(d, device=dev),
+                                         config_from_numpy(d))[:h, :w].contiguous())
+    targets = torch.stack(targets)
+    tcfg = tr.TrainConfig(iterations=P["iterations"], prune_iter=P["prune_iter"],
+                          grow_iter=P["grow_iter"])
+    log(f"[4] main path (p1): parallel.fit_batch of the renders of repr_states_plain/"
+        f"{', '.join(names)}, a NCCL group of one, seeds {FIT_SEED}-"
+        f"{FIT_SEED + len(names) - 1}, {FIT_POINTS} Gaussians up to {cfg.max_num_points}, "
+        f"{P['iterations']} steps, a prune every {P['prune_iter']}, growth at {P['grow_iter']}")
+    first = {}
+
+    def progress(it, m):
+        first.setdefault("psnr", m["psnr"][:, 0].cpu().numpy())
+
+    tss = book.timed("fit_batch", lambda: psh.fit_batch(
+        targets, cfg, tcfg, FIT_POINTS, mesh=psh.make_mesh(), seed=FIT_SEED, progress=progress,
+        device=dev))
+
+    def each_alone():
+        out = []
+        for i, target in enumerate(targets):
+            ts = tr.init_train_state(cfg, tcfg, FIT_POINTS, seed=FIT_SEED + i, device=dev)
+            for end in range(tcfg.prune_iter, tcfg.iterations + 1, tcfg.prune_iter):
+                grow = end % tcfg.grow_iter == 0 and end < tcfg.iterations
+                ts, _ = tr.train_chunk(ts, target, cfg, tcfg, tcfg.prune_iter, True, grow,
+                                       end == tcfg.iterations - tcfg.grow_iter)
+            out.append(ts)
+        return out
+
+    alone = book.timed("each image alone", each_alone)
+    best = np.array([float(ts.best_psnr) for ts in tss])
+    rise = best - first["psnr"]
+    n_b, n_a = book.info["fit_batch"], book.info["each image alone"]
+    steps = len(names) * P["iterations"]
+    log(f"  fit_batch: {n_b['seconds']:.2f} s ({n_b['seconds'] / len(names):.2f} s an image), "
+        f"each image alone {n_a['seconds']:.2f} s ({n_a['seconds'] / len(names):.2f} s an "
+        f"image); best PSNR " + " / ".join(f"{b:.4f}" for b in best) + " dB, rise "
+        + " / ".join(f"{r:.2f}" for r in rise) + " dB; active "
+        + " / ".join(str(int(ts.gaussians.num_active)) for ts in tss)
+        + f"; launches {book.launches('fit_batch')} (alone: {book.launches('each image alone')})")
+    check(len(tss) == len(names) and all(same(a, b) for a, b in zip(tss, alone)),
+          "fit_batch: an image's state is not torch.equal to its schedule run alone")
+    check(bool((rise >= P["rise_db"]).all()), f"fit_batch: best PSNR rose {rise} dB, not "
+          f"{P['rise_db']}")
+    check(n_b["launches"]["c"] == steps and n_b["launches"]["b"] >= steps,
+          f"fit_batch: launches {n_b['launches']} in {steps} steps")
+    info_p = dict(fit_batch=dict(book.info["fit_batch"], best_psnr=best.tolist(),
+                                 rise_db=rise.tolist(), equal_alone=True,
+                                 alone_seconds=n_a["seconds"], alone_launches=n_a["launches"],
+                                 active=[int(ts.gaussians.num_active) for ts in tss]))
+
+    # (p2) the tile-sharded step and fit in a world of one, against 'xla'
+    cfg_x = dataclasses.replace(cfg, raster_backend="xla")
+    mesh = psh.make_mesh(axis_names=("tile",))
+    render_fn = psh.make_tile_sharded_render(mesh, cfg_x, axis="tile")
+    tc_a = tr.TrainConfig(iterations=P["agree_steps"], prune_iter=P["agree_steps"])
+    ts0 = tr.init_train_state(cfg_x, tc_a, FIT_POINTS, seed=FIT_SEED + 10, device=dev)
+    _, m_s = tr.train_chunk(ts0, fit_target, cfg_x, tc_a, P["agree_steps"], False, False,
+                            render_fn=render_fn)
+    _, m_x = tr.train_chunk(ts0, fit_target, cfg_x, tc_a, P["agree_steps"], False, False)
+    p_s, p_x = m_s["psnr"].cpu().numpy(), m_x["psnr"].cpu().numpy()
+    agree_db = float(np.abs(p_s - p_x).max())
+    log(f"[4] main path (p2): {P['agree_steps']} steps through make_tile_sharded_render vs "
+        f"'xla', one start: PSNR {p_s[-1]:.4f} vs {p_x[-1]:.4f} dB at the last step, at most "
+        f"{agree_db:.3g} dB apart")
+    check(agree_db <= AGREE_DB, f"sharded and 'xla' steps differ by {agree_db:.3g} dB")
+    tc_f = tr.TrainConfig(**P["fit"])
+    res_s, fit_gb = peak_gb(lambda: book.timed("fit_image_tile_sharded", lambda: (
+        psh.fit_image_tile_sharded(fit_target, cfg_x, tc_f, FIT_POINTS, mesh=mesh, seed=FIT_SEED,
+                                   device=dev))))
+    res_x = book.timed("fit_image xla", lambda: tr.fit_image(fit_target, cfg_x, tc_f, FIT_POINTS,
+                                                               seed=FIT_SEED, device=dev))
+    p_fit = res_s.history["psnr"].cpu().numpy()
+    fit_rise = res_s.best_psnr - float(p_fit[0])
+    ts_t = tr.init_train_state(cfg_x, tc_f, 0, gaussians=res_s.state)
+    tx = tr.make_optimizer(tc_f)
+    cur = [ts_t, ts_t]
+
+    def step_sharded():
+        cur[0] = tr.train_step(cur[0], fit_target, cfg_x, tc_f, tx, render_fn)[0]
+
+    def step_xla():
+        cur[1] = tr.train_step(cur[1], fit_target, cfg_x, tc_f, tx)[0]
+
+    step_ms, step_gb = peak_gb(lambda: median_ms(step_sharded))
+    xla_ms = median_ms(step_xla)
+    spread = psh.replica_spread((*res_s.state.params, res_s.state.active), mesh)
+    log(f"  fit_image_tile_sharded, {tc_f.iterations} steps (prune every {tc_f.prune_iter}, "
+        f"growth at {tc_f.grow_iter}): PSNR first {p_fit[0]:.4f}, best {res_s.best_psnr:.4f} dB "
+        f"(+{fit_rise:.3f}), {int(res_s.state.num_active)} active (the 'xla' fit: best "
+        f"{res_x.best_psnr:.4f} dB, {int(res_x.state.num_active)} active) in "
+        f"{book.info['fit_image_tile_sharded']['seconds']:.2f} s, peak {fit_gb:.3f} GB; a step "
+        f"at its best state {step_ms:.4f} ms (median of {FRAMES}; 'xla' {xla_ms:.4f} ms), peak "
+        f"{step_gb:.3f} GB; replica spread {spread}")
+    check(fit_rise >= P["fit_rise_db"], f"sharded fit rose {fit_rise:.3f} dB, not "
+          f"{P['fit_rise_db']}")
+    check(np.isfinite(p_fit).all() and spread == 0.0, "sharded fit: non-finite or spread")
+    info_p["sharded"] = dict(agree_max_db=agree_db, agree_steps=P["agree_steps"],
+                             fit_best_psnr=res_s.best_psnr, fit_rise_db=fit_rise,
+                             fit_active=int(res_s.state.num_active),
+                             xla_best_psnr=res_x.best_psnr,
+                             xla_active=int(res_x.state.num_active),
+                             fit_seconds=book.info["fit_image_tile_sharded"]["seconds"],
+                             xla_fit_seconds=book.info["fit_image xla"]["seconds"],
+                             fit_peak_gb=fit_gb, step_ms=step_ms, step_peak_gb=step_gb,
+                             xla_step_ms=xla_ms)
+
+    # (p3) the 2K state: one sharded render with the row-band hier binner
+    h2, w2 = cfg2k.H, cfg2k.W
+    cfg_h = dataclasses.replace(cfg2k, bin_method="hier", raster_backend="xla")
+    render_2k = psh.make_tile_sharded_render(mesh, cfg_h, axis="tile",
+                                             super_cap=P["super_cap_2k"])
+
+    def render_grad(fn, cfg_):
+        params = gi.GaussianParams(*(p.detach().clone().requires_grad_(True)
+                                     for p in state2k.params))
+        img = fn(state2k._replace(params=params), cfg_)
+        return img.detach(), torch.autograd.grad(torch.mean((img - target2k) ** 2), params)
+
+    (img_s, g_s), gb_2k = peak_gb(lambda: render_grad(render_2k, cfg_h))
+    # the unsharded reference bins exactly (flat top_k): its own 'hier' may overflow
+    cfg_u = dataclasses.replace(cfg_h, bin_method="top_k")
+    (img_u, g_u), gb_u = peak_gb(lambda: render_grad(gi.render, cfg_u))
+    proj2k = gi.project(state2k.params, state2k.active, state2k.bound, cfg_h)
+    tb2 = tile_bounds_for(h2, w2)
+    # the render's own count, summed over the mesh; the default budget's beside it
+    ovf = render_2k.super_overflow()
+    ovf_default = int(bin_gaussian_rows_hier(proj2k, h2, w2, 0, tb2[0] * tb2[1],
+                                             cap=cfg_h.tile_cap).super_overflow)
+    img_d = float((img_s - img_u).abs().max())
+    rel = max(float(((a - b).abs().amax(0) / b.abs().amax(0).clamp(min=1e-30)).max())
+              for a, b in zip(g_s, g_u))
+    log(f"[4] main path (p3): the 2K state ({w2}x{h2}, {int(state2k.num_active)} active), one "
+        f"sharded render with bin_method='hier', super_cap {P['super_cap_2k']}: max |sharded - "
+        f"unsharded 'xla' (top_k)| {img_d:.3g}, super_overflow {ovf} (at the default budget: "
+        f"{ovf_default}), gradient within {rel:.3g} of each column's max; peak {gb_2k:.3f} GB "
+        f"(unsharded 'xla' {gb_u:.3f} GB)")
+    check(img_d <= 1e-5 and ovf == 0 and rel <= C_REL,
+          f"2K sharded render: {img_d}, super_overflow {ovf}, gradient {rel}")
+    info_p["2K"] = dict(max_abs=img_d, super_overflow=ovf, super_overflow_default=ovf_default,
+                        super_cap=P["super_cap_2k"], grad_worst_column_rel=rel,
+                        peak_gb=gb_2k, unsharded_peak_gb=gb_u)
+    info_p["launches"] = {k: v["launches"] for k, v in book.info.items()}
+
+    # (l1) the legacy 3DGS model: card against CPU, then Adam on the card
+    L = LEGACY
+    cfg3 = g3.Gaussian3DConfig(H=h, W=w, num_points=L["points"], sh_degree=L["sh_degree"])
+    p0 = g3.init_params_3d(cfg3, torch.Generator(device=dev).manual_seed(FIT_SEED))
+    p0_cpu = g3.Gaussian3DParams(*(x.cpu() for x in p0))
+    n3 = L["agree_steps"]
+    _, m_card = book.timed("3DGS card", lambda: g3.fit_image_3d(fit_target, cfg3, iterations=n3,
+                                                                 params=p0))
+    _, m_cpu = book.timed("3DGS CPU", lambda: g3.fit_image_3d(fit_target.cpu(), cfg3,
+                                                               iterations=n3, params=p0_cpu))
+    h_card = m_card["history"]["psnr"].cpu().numpy()
+    h_cpu = m_cpu["history"]["psnr"].numpy()
+    db3 = float(np.abs(h_card - h_cpu).max())
+    p300, m300 = book.timed("3DGS Adam", lambda: g3.fit_image_3d(
+        fit_target, cfg3, iterations=L["steps"], params=p0))
+    loss3 = m300["history"]["loss"].cpu().numpy()
+    psnr3 = m300["history"]["psnr"].cpu().numpy()
+    box = [p300]
+
+    def step3():    # a step of fit_image_3d (with its optimizer set-up and metrics)
+        box[0] = g3.fit_image_3d(fit_target, cfg3, iterations=1, params=box[0])[0]
+
+    ms3 = median_ms(step3)
+    busy3, rows3, _ = device_time_per_call(step3)
+    log(f"[4] main path (l1): the 3DGS model at {cfg3.W}x{cfg3.H}, {cfg3.num_points} points, SH "
+        f"degree {cfg3.sh_degree}: {n3} steps on the card and on the CPU from one start, PSNR at "
+        f"most {db3:.3g} dB apart ({book.info['3DGS card']['seconds']:.2f} s vs "
+        f"{book.info['3DGS CPU']['seconds']:.2f} s); {L['steps']} Adam steps: loss "
+        f"{loss3[0]:.5f} -> {loss3[-1]:.5f}, PSNR {psnr3[0]:.4f} -> {psnr3[-1]:.4f} dB in "
+        f"{book.info['3DGS Adam']['seconds']:.2f} s; a step {ms3:.4f} ms (median of {FRAMES}), "
+        f"device busy {busy3:.4f} ms ({busy3 / ms3:.1%}); top device time: "
+        + "; ".join(f"{name[:50]} {ms:.4f} ms" for name, ms in rows3[:4]))
+    check(db3 <= AGREE_DB, f"3DGS: card and CPU differ by {db3:.3g} dB")
+    check(np.isfinite(loss3).all() and loss3[-1] < loss3[0] and psnr3[-1] > psnr3[0],
+          f"3DGS: loss {loss3[0]} -> {loss3[-1]}, PSNR {psnr3[0]} -> {psnr3[-1]}")
+    info_l = dict(agree_max_db=db3, agree_steps=n3, loss_first=float(loss3[0]),
+                  loss_last=float(loss3[-1]), psnr_first=float(psnr3[0]),
+                  psnr_last=float(psnr3[-1]), step_ms=ms3, busy_ms=busy3,
+                  seconds={k: book.info[k]["seconds"] for k in ("3DGS card", "3DGS CPU",
+                                                                "3DGS Adam")})
+
+    # (l2) pixel_count_map at the fit state, card against CPU
+    cfg_c = cfg
+    counts = pixel_count_map(fit_state, cfg_c)
+    counts_cpu = pixel_count_map(type(fit_state)(
+        params=gi.GaussianParams(*(p.cpu() for p in fit_state.params)),
+        active=fit_state.active.cpu(), bound=fit_state.bound.cpu(),
+        num_active=fit_state.num_active.cpu()), cfg_c)
+    differ = float((counts.cpu() != counts_cpu).float().mean())
+    log(f"[4] main path (l2): pixel_count_map at the fit state: {int(counts.max())} at most in a "
+        f"pixel, mean {float(counts.float().mean()):.2f}; {differ:.4%} of pixels differ from the "
+        f"CPU's")
+    check(tuple(counts.shape) == (cfg_c.H, cfg_c.W) and differ <= COUNT_FRAC,
+          f"pixel_count_map: {differ:.4%} of pixels differ from the CPU's")
+    info_l["pixel_count"] = dict(max=int(counts.max()), differ_frac=differ)
+    line = ("parallel and legacy (not in loss_ms): fit_batch {:.2f} s an image (alone {:.2f}), "
+            "torch.equal; sharded vs 'xla' {:.3g} dB, sharded fit +{:.2f} dB, step {:.4f} ms, "
+            "peak {:.2f} GB; 2K sharded {:.3g}, overflow {}, peak {:.2f} GB; 3DGS card vs CPU "
+            "{:.3g} dB, step {:.4f} ms (busy {:.1%}); pixel counts differ {:.4%}").format(
+        n_b["seconds"] / len(names), n_a["seconds"] / len(names), agree_db, fit_rise, step_ms,
+        step_gb, img_d, ovf, gb_2k, db3, ms3, busy3 / ms3, differ)
+    return info_p, info_l, line
 
 
 def nvidia_smi_line() -> str:
@@ -1477,6 +1767,19 @@ def run() -> None:
     report["phases"]["entry points"], entry_line = entry_points(dev, fit_target, res.state,
                                                                 kernels)
 
+    # (p) and (l): parallel/ in a NCCL process group of one, the legacy 3DGS
+    # model, the pixel counts; launches reported apart, as (g)'s
+    import torch.distributed as dist
+
+    with tempfile.TemporaryDirectory() as pg_dir:
+        dist.init_process_group("nccl", init_method=f"file://{pg_dir}/store", rank=0,
+                                world_size=1)
+        try:
+            report["phases"]["parallel"], report["phases"]["legacy"], par_line = \
+                parallel_and_legacy(dev, fit_target, res.state, s2k, cfg2k, target2k, kernels)
+        finally:
+            dist.destroy_process_group()
+
     # ---- 5. timing
     log(f"[5] times on the card, CUDA events: per frame, median of {FRAMES} frames; "
         f"kernels and plain versions per call, {FRAMES} calls back to back, median of 5 runs")
@@ -2024,6 +2327,7 @@ def run() -> None:
     report["kernels"] = kernel_rows
     write_report()
     log(entry_line)
+    log(par_line)
     log(json.dumps({"kernels": kernel_rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

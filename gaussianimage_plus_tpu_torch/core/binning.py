@@ -3,7 +3,10 @@
 Port of ``gaussianimage_plus_tpu/core/binning.py`` — ``bin_gaussians`` with
 the exact ``'top_k'``, ``'scatter'`` and ``'rank'`` selections (``:91-119``,
 ``:245-315``), the two-level ``'hier'`` method (``_bin_hier``, ``:122-172``,
-plain tensor code in both packages) and ``morton_perm`` (``:318-343``).
+plain tensor code in both packages), ``morton_perm`` (``:318-343``), and the
+row-range binners of the tile-sharded render: ``_membership_rows``
+(``:70-89``), ``bin_gaussian_rows`` (``:175-184``), ``bin_gaussian_rows_hier``
+(``:187-244``) and ``gather_tile_attrs`` (``:346-348``).
 Each tile keeps its first ``cap`` members in Gaussian-index order (the
 reference's silent per-tile cap, forward.cu:673), so ids/mask/count equal
 the JAX ones exactly. Slots past the count hold id 0 and ``mask=False``.
@@ -209,3 +212,82 @@ def morton_perm(xys: torch.Tensor, valid: torch.Tensor, H: int, W: int,
     code = morton_spread(tx) | (morton_spread(ty) << 1)
     code = torch.where(valid, code, torch.full_like(code, 2 ** 30))
     return torch.argsort(code, stable=True)
+
+
+def _membership_rows(proj: Projected, tile_bounds: Tuple[int, int], block_h: int,
+                     block_w: int, tile_start: int, n_tiles: int) -> torch.Tensor:
+    """[n_tiles, N] membership of the flat y-major tile rows ``[tile_start,
+    tile_start + n_tiles)``; rows past the grid are all False. Each rank of a
+    tile-sharded render bins only its own rows."""
+    tb_x, tb_y = tile_bounds
+    xmin, xmax, ymin, ymax = tile_bbox(
+        proj.xys, proj.radii.to(torch.float32), tile_bounds, block_h, block_w)
+    t = tile_start + torch.arange(n_tiles, dtype=torch.int32, device=proj.xys.device)
+    tx = (t % tb_x)[:, None]
+    ty = torch.div(t, tb_x, rounding_mode="floor")[:, None]
+    in_grid = (t < tb_x * tb_y)[:, None]
+    return ((tx >= xmin[None, :]) & (tx < xmax[None, :]) & (ty >= ymin[None, :])
+            & (ty < ymax[None, :]) & in_grid & proj.valid[None, :])
+
+
+def bin_gaussian_rows(proj: Projected, H: int, W: int, tile_start: int, n_tiles: int,
+                      cap: int = 256, block_h: int = BLOCK_H, block_w: int = BLOCK_W,
+                      method: str = "top_k") -> TileBins:
+    """``bin_gaussians`` restricted to the flat tile rows ``[tile_start,
+    tile_start + n_tiles)``: the full result's rows, sliced, at a shard's
+    share of the work. ``method``: ``'top_k'``, ``'scatter'`` or ``'rank'``."""
+    tb = tile_bounds_for(H, W, block_h, block_w)
+    member = _membership_rows(proj, tb, block_h, block_w, tile_start, n_tiles)
+    return select_members(member, cap, method)
+
+
+def bin_gaussian_rows_hier(proj: Projected, H: int, W: int, tile_start: int, n_tiles: int,
+                           cap: int = 256, block_h: int = BLOCK_H, block_w: int = BLOCK_W,
+                           band_rows: int = 4, super_cap: int = 0) -> TileBins:
+    """Two-level ``bin_gaussian_rows``: level 1 keeps, for each full-width
+    band of ``band_rows`` tile rows over the shard's range, its first
+    ``super_cap`` candidates (0 = ``max(4 cap, 512)``); level 2 tests each of
+    the shard's tiles only against its band's candidates. Equal to
+    ``bin_gaussian_rows`` wherever no band overflows; ``super_overflow``
+    counts the candidates dropped."""
+    tb = tile_bounds_for(H, W, block_h, block_w)
+    tb_x, tb_y = tb
+    N = proj.xys.shape[0]
+    dev = proj.xys.device
+    super_cap = min(super_cap or max(4 * cap, 512), N)
+    xmin, xmax, ymin, ymax = tile_bbox(
+        proj.xys, proj.radii.to(torch.float32), tb, block_h, block_w)
+
+    # a band count that covers every tile row the shard's flat range can touch
+    rows_max = (n_tiles - 1) // tb_x + 2
+    B = rows_max // band_rows + 2
+    b_first = (tile_start // tb_x) // band_rows
+    band_y0 = (b_first + torch.arange(B, dtype=torch.int32, device=dev)) * band_rows
+    band_y1 = band_y0 + band_rows
+
+    # level 1: band membership (y-interval overlap) and compaction
+    member1 = ((ymin[None, :] < band_y1[:, None]) & (ymax[None, :] > band_y0[:, None])
+               & (band_y0 < tb_y)[:, None] & proj.valid[None, :])
+    s_count = member1.sum(dim=1, dtype=torch.int32)
+    overflow = torch.clamp(s_count - super_cap, min=0).sum(dtype=torch.int32)
+    cand = select_members(member1, super_cap, "top_k")
+    cid = cand.ids.to(torch.int64)
+    c_xmin, c_xmax, c_ymin, c_ymax = xmin[cid], xmax[cid], ymin[cid], ymax[cid]
+
+    # level 2: each local tile against its band's candidates
+    t = tile_start + torch.arange(n_tiles, dtype=torch.int64, device=dev)
+    tx, ty = t % tb_x, torch.div(t, tb_x, rounding_mode="floor")
+    b_of_t = torch.clamp(torch.div(ty, band_rows, rounding_mode="floor") - b_first, 0, B - 1)
+    tx32, ty32 = tx.to(torch.int32)[:, None], ty.to(torch.int32)[:, None]
+    member2 = ((tx32 >= c_xmin[b_of_t]) & (tx32 < c_xmax[b_of_t]) & (ty32 >= c_ymin[b_of_t])
+               & (ty32 < c_ymax[b_of_t]) & cand.mask[b_of_t] & (t < tb_x * tb_y)[:, None])
+    sel = select_members(member2, cap, "top_k")                   # columns into cand
+    ids = cand.ids[b_of_t[:, None], sel.ids.to(torch.int64)]
+    ids = torch.where(sel.mask, ids, torch.zeros_like(ids))
+    return TileBins(ids=ids, mask=sel.mask, count=sel.count, super_overflow=overflow)
+
+
+def gather_tile_attrs(bins: TileBins, *arrays: torch.Tensor):
+    """Per-Gaussian arrays [N, ...] -> per-tile layout [T, cap, ...]."""
+    ids = bins.ids.to(torch.int64)
+    return tuple(a[ids] for a in arrays)

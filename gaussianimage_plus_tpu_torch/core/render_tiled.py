@@ -102,11 +102,11 @@ def _sigma(w, px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
     return _fma(w0, px * px, s)
 
 
-def blend_table_tiles(raw: torch.Tensor, tile_idx: torch.Tensor, tb_x: int,
-                      block_h: int = BLOCK_H, block_w: int = BLOCK_W) -> torch.Tensor:
-    """Per-tile blend of a gathered table ``raw`` [Tb, K, 16] (rows
-    ``[c1, c2, c3, mx, my, r, g, b, opac, 0.., valid]``) for the tiles
-    ``tile_idx`` [Tb] -> [Tb, P, 3]."""
+def _tile_gate(raw: torch.Tensor, tile_idx: torch.Tensor, tb_x: int, block_h: int,
+               block_w: int):
+    """The blend gate of a gathered table ``raw`` [Tb, K, 16] (rows ``[c1,
+    c2, c3, mx, my, r, g, b, opac, 0.., valid]``) over the tiles ``tile_idx``
+    [Tb]: (px, py, lmx, lmy, vis, alpha, contrib), the last three [Tb, K, P]."""
     dev = raw.device
     P = block_h * block_w
     pp = torch.arange(P, device=dev)
@@ -118,33 +118,73 @@ def blend_table_tiles(raw: torch.Tensor, tile_idx: torch.Tensor, tb_x: int,
     lmx = raw[..., 3] - tx0
     lmy = raw[..., 4] - ty0
     sigma = _sigma(_quad_coeffs(c1, c2, c3, lmx, lmy), px, py)     # [Tb, K, P]
-    alpha = torch.clamp(raw[..., 8, None] * torch.exp(-sigma), max=1.0)
+    vis = torch.exp(-sigma)
+    alpha = torch.clamp(raw[..., 8, None] * vis, max=1.0)
     contrib = (sigma >= 0.0) & (alpha >= ALPHA_THRESHOLD) & (raw[..., 15, None] > 0.0)
+    return px, py, lmx, lmy, vis, alpha, contrib
+
+
+def blend_table_tiles(raw: torch.Tensor, tile_idx: torch.Tensor, tb_x: int,
+                      block_h: int = BLOCK_H, block_w: int = BLOCK_W) -> torch.Tensor:
+    """Per-tile blend of a gathered table ``raw`` [Tb, K, 16] for the tiles
+    ``tile_idx`` [Tb] -> [Tb, P, 3]."""
+    *_, alpha, contrib = _tile_gate(raw, tile_idx, tb_x, block_h, block_w)
     weights = torch.where(contrib, alpha, torch.zeros_like(alpha))
     return torch.einsum("tkp,tkc->tpc", weights, raw[..., 5:8])
 
 
-def render_table(raw: torch.Tensor, counts: torch.Tensor, H: int, W: int,
-                 block_h: int = BLOCK_H, block_w: int = BLOCK_W) -> torch.Tensor:
-    """[H, W, 3] unclamped image from a per-tile table [T, K, 16] whose
-    first ``counts[t]`` rows are tile t's members and the rest are
-    invalid sentinels (so only the first ``counts`` rows are read)."""
-    tb_x, tb_y = tile_bounds_for(H, W, block_h, block_w)
-    T, K, _ = raw.shape
-    P = block_h * block_w
-    dev = raw.device
-    out = torch.zeros((T, P, 3), dtype=torch.float32, device=dev)
-    budget = _BATCH_ELEMS.get(dev.type, 1 << 22)
+def _tile_batches(counts: torch.Tensor, K: int, P: int, budget: int):
+    """(t0, t1, k) over batches of tiles whose [t1 - t0, k, P] slab stays
+    within ``budget`` elements, ``k`` the batch's largest count (batches
+    with no member are skipped)."""
+    T = counts.shape[0]
     kmax = int(counts.max()) if T else 0
     step = max(1, budget // (max(min(kmax, K), 1) * P))
     for t0 in range(0, T, step):
         t1 = min(T, t0 + step)
         k = min(K, int(counts[t0:t1].max()))
-        if k <= 0:
-            continue
+        if k > 0:
+            yield t0, t1, k
+
+
+def blend_tiles(raw: torch.Tensor, counts: torch.Tensor, tile_idx: torch.Tensor, tb_x: int,
+                block_h: int = BLOCK_H, block_w: int = BLOCK_W) -> torch.Tensor:
+    """[T, P, 3] unclamped tiles ``tile_idx`` [T] of the grid from their
+    per-tile table [T, K, 16], whose first ``counts[t]`` rows are tile t's
+    members and the rest invalid sentinels (so only those rows are read)."""
+    T, K, _ = raw.shape
+    P = block_h * block_w
+    dev = raw.device
+    out = torch.zeros((T, P, 3), dtype=torch.float32, device=dev)
+    for t0, t1, k in _tile_batches(counts, K, P, _BATCH_ELEMS.get(dev.type, 1 << 22)):
+        out[t0:t1] = blend_table_tiles(raw[t0:t1, :k], tile_idx[t0:t1], tb_x, block_h, block_w)
+    return out
+
+
+def render_table(raw: torch.Tensor, counts: torch.Tensor, H: int, W: int,
+                 block_h: int = BLOCK_H, block_w: int = BLOCK_W) -> torch.Tensor:
+    """[H, W, 3] unclamped image from the per-tile table [T, K, 16] of the
+    whole grid (``blend_tiles``)."""
+    tb_x, tb_y = tile_bounds_for(H, W, block_h, block_w)
+    idx = torch.arange(raw.shape[0], device=raw.device)
+    return _tiles_to_image(blend_tiles(raw, counts, idx, tb_x, block_h, block_w),
+                           H, W, tb_x, tb_y, block_h, block_w)
+
+
+def contrib_counts(raw: torch.Tensor, counts: torch.Tensor, H: int, W: int,
+                   block_h: int = BLOCK_H, block_w: int = BLOCK_W) -> torch.Tensor:
+    """[H, W] int32: the rows of a per-tile table (as ``render_table``
+    takes it) that pass the blend gate at each pixel."""
+    tb_x, tb_y = tile_bounds_for(H, W, block_h, block_w)
+    T, K, _ = raw.shape
+    P = block_h * block_w
+    dev = raw.device
+    out = torch.zeros((T, P, 1), dtype=torch.int32, device=dev)
+    for t0, t1, k in _tile_batches(counts, K, P, _BATCH_ELEMS.get(dev.type, 1 << 22)):
         idx = torch.arange(t0, t1, device=dev)
-        out[t0:t1] = blend_table_tiles(raw[t0:t1, :k], idx, tb_x, block_h, block_w)
-    return _tiles_to_image(out, H, W, tb_x, tb_y, block_h, block_w)
+        contrib = _tile_gate(raw[t0:t1, :k], idx, tb_x, block_h, block_w)[-1]
+        out[t0:t1, :, 0] = contrib.sum(dim=1, dtype=torch.int32)
+    return _tiles_to_image(out, H, W, tb_x, tb_y, block_h, block_w)[..., 0]
 
 
 def _phi(px: torch.Tensor, py: torch.Tensor) -> torch.Tensor:
@@ -160,20 +200,9 @@ def tile_payload(raw: torch.Tensor, v_out: torch.Tensor, tile_idx: torch.Tensor,
     ``raw`` [Tb, K, 16] against the cotangent tiles ``v_out`` [Tb, P, 3]
     (``_rasterize_bwd`` of the JAX package, per tile)."""
     dev = raw.device
-    P = block_h * block_w
-    pp = torch.arange(P, device=dev)
-    px = (pp % block_w).double()
-    py = torch.div(pp, block_w, rounding_mode="floor").double()
-    tx0 = ((tile_idx % tb_x) * block_w).to(torch.float32)[:, None]
-    ty0 = (torch.div(tile_idx, tb_x, rounding_mode="floor") * block_h).to(torch.float32)[:, None]
     c1, c2, c3 = raw[..., 0], raw[..., 1], raw[..., 2]
-    lmx = raw[..., 3] - tx0
-    lmy = raw[..., 4] - ty0
     opac = raw[..., 8, None]
-    sigma = _sigma(_quad_coeffs(c1, c2, c3, lmx, lmy), px, py)     # [Tb, K, P]
-    vis = torch.exp(-sigma)
-    alpha = torch.clamp(opac * vis, max=1.0)
-    contrib = (sigma >= 0.0) & (alpha >= ALPHA_THRESHOLD) & (raw[..., 15, None] > 0.0)
+    px, py, lmx, lmy, vis, alpha, contrib = _tile_gate(raw, tile_idx, tb_x, block_h, block_w)
     zero = torch.zeros((), dtype=alpha.dtype, device=dev)
     weights = torch.where(contrib, alpha, zero)
     vo = v_out[:, None, :, :]                                       # [Tb, 1, P, 3]
@@ -205,57 +234,73 @@ def index_sum_(acc: torch.Tensor, ids: torch.Tensor, src: torch.Tensor) -> torch
     return acc.index_put_((ids,), src, accumulate=True)
 
 
-def tile_grads(raw: torch.Tensor, ids: torch.Tensor, counts: torch.Tensor,
-               v_img: torch.Tensor, num: int, block_h: int = BLOCK_H,
-               block_w: int = BLOCK_W) -> torch.Tensor:
-    """Per-row gradient payload sums [num, 9] of a per-tile table ``raw``
-    [T, K, 16] whose first ``counts[t]`` rows are the members ``ids[t]``
-    (row indices < ``num``) of tile t (``scatter_tile_grads``)."""
-    H, W, _ = v_img.shape
-    tb_x, tb_y = tile_bounds_for(H, W, block_h, block_w)
+def payload_sums(raw: torch.Tensor, ids: torch.Tensor, counts: torch.Tensor,
+                 v_out: torch.Tensor, tile_idx: torch.Tensor, tb_x: int, num: int,
+                 block_h: int = BLOCK_H, block_w: int = BLOCK_W) -> torch.Tensor:
+    """Per-row gradient payload sums [num, 9] of the tiles ``tile_idx`` [T]
+    from their per-tile table ``raw`` [T, K, 16], whose first ``counts[t]``
+    rows are the members ``ids[t]`` (row indices < ``num``), against the
+    cotangent tiles ``v_out`` [T, P, 3] (``scatter_tile_grads``)."""
     T, K, _ = raw.shape
     P = block_h * block_w
     dev = raw.device
-    v_out = _image_to_tiles(v_img, tb_x, tb_y, block_h, block_w)
     acc = torch.zeros((num, 9), dtype=torch.float32, device=dev)
-    budget = _BATCH_ELEMS.get(dev.type, 1 << 22) // 4
-    kmax = int(counts.max()) if T else 0
-    step = max(1, budget // (max(min(kmax, K), 1) * P))
-    for t0 in range(0, T, step):
-        t1 = min(T, t0 + step)
-        k = min(K, int(counts[t0:t1].max()))
-        if k <= 0:
-            continue
-        idx = torch.arange(t0, t1, device=dev)
-        pay = tile_payload(raw[t0:t1, :k], v_out[t0:t1], idx, tb_x, block_h, block_w)
+    for t0, t1, k in _tile_batches(counts, K, P, _BATCH_ELEMS.get(dev.type, 1 << 22) // 4):
+        pay = tile_payload(raw[t0:t1, :k], v_out[t0:t1], tile_idx[t0:t1], tb_x, block_h, block_w)
         live = torch.arange(k, device=dev)[None, :] < counts[t0:t1, None]
         index_sum_(acc, ids[t0:t1, :k][live].to(torch.int64), pay[live])
     return acc
 
 
-class _RasterizeTiled(torch.autograd.Function):
-    """``rasterize_tiled`` with the JAX package's hand-written VJP."""
+def tile_grads(raw: torch.Tensor, ids: torch.Tensor, counts: torch.Tensor,
+               v_img: torch.Tensor, num: int, block_h: int = BLOCK_H,
+               block_w: int = BLOCK_W) -> torch.Tensor:
+    """``payload_sums`` over the whole grid, against the image cotangent
+    ``v_img`` [H, W, 3]."""
+    H, W, _ = v_img.shape
+    tb_x, tb_y = tile_bounds_for(H, W, block_h, block_w)
+    v_out = _image_to_tiles(v_img, tb_x, tb_y, block_h, block_w)
+    idx = torch.arange(raw.shape[0], device=raw.device)
+    return payload_sums(raw, ids, counts, v_out, idx, tb_x, num, block_h, block_w)
+
+
+class _RasterizeTiles(torch.autograd.Function):
+    """``rasterize_tiles`` with the JAX package's hand-written VJP."""
 
     @staticmethod
-    def forward(ctx, xys, conics, colors, opacity, ids, mask, H, W, block_h, block_w):
+    def forward(ctx, xys, conics, colors, opacity, ids, mask, tile_idx, tb_x, block_h, block_w):
         from ..kernels.raster_binned import _prepare
 
         raw, counts = _prepare(xys, conics, colors, opacity, ids, mask)
-        ctx.save_for_backward(xys, conics, colors, opacity, ids, mask)
-        ctx.blocks = (block_h, block_w)
-        return render_table(raw, counts, H, W, block_h, block_w)
+        ctx.save_for_backward(xys, conics, colors, opacity, ids, mask, tile_idx)
+        ctx.grid = (tb_x, block_h, block_w)
+        return blend_tiles(raw, counts, tile_idx, *ctx.grid)
 
     @staticmethod
-    def backward(ctx, v_img):
+    def backward(ctx, v_tiles):
         from ..kernels.raster_binned import _prepare
 
-        xys, conics, colors, opacity, ids, mask = ctx.saved_tensors
+        xys, conics, colors, opacity, ids, mask, tile_idx = ctx.saved_tensors
+        tb_x, block_h, block_w = ctx.grid
         N = xys.shape[0]
         raw, counts = _prepare(xys, conics, colors, opacity, ids, mask)
         ids_s = torch.where(mask, ids.to(torch.int64), torch.full_like(ids, N, dtype=torch.int64))
-        acc = tile_grads(raw, ids_s, counts, v_img.contiguous(), N + 1, *ctx.blocks)[:N]
+        acc = payload_sums(raw, ids_s, counts, v_tiles.contiguous(), tile_idx, tb_x, N + 1,
+                           block_h, block_w)[:N]
         return (acc[:, 0:2], acc[:, 2:5], acc[:, 5:8], acc[:, 8].reshape(opacity.shape),
                 None, None, None, None, None, None)
+
+
+def rasterize_tiles(xys, conics, colors, opacity, ids, mask, tile_idx: torch.Tensor,
+                    tb_x: int, block_h: int = BLOCK_H, block_w: int = BLOCK_W) -> torch.Tensor:
+    """The tiles ``tile_idx`` [T] of a grid ``tb_x`` tiles wide, binned as
+    ``ids`` / ``mask`` [T, K] -> [T, P, 3], raw (unclamped, no background);
+    differentiable in ``xys``, ``conics``, ``colors`` and ``opacity``
+    through the reference's VJP: ``min(1, .)`` passes its gradient through
+    (backward.cu:1310), and the packed off-diagonal conic receives half its
+    cotangent (backward.cu:1313-1315; the projection VJP doubles it back)."""
+    return _RasterizeTiles.apply(xys, conics, colors, opacity, ids, mask, tile_idx, tb_x,
+                                 block_h, block_w)
 
 
 def rasterize_tiled(xys, conics, colors, opacity, ids, mask,
@@ -263,7 +308,9 @@ def rasterize_tiled(xys, conics, colors, opacity, ids, mask,
                     block_w: int = BLOCK_W) -> torch.Tensor:
     """Accumulated-sum rasterization of binned 2D Gaussians -> [H, W, 3],
     raw (unclamped, no background), with the plain PyTorch blend on
-    whichever device the tensors live; differentiable in ``xys``,
-    ``conics``, ``colors`` and ``opacity`` through the reference's VJP."""
-    return _RasterizeTiled.apply(xys, conics, colors, opacity, ids, mask, H, W,
-                                 block_h, block_w)
+    whichever device the tensors live: ``rasterize_tiles`` over the whole
+    grid."""
+    tb_x, tb_y = tile_bounds_for(H, W, block_h, block_w)
+    tiles = rasterize_tiles(xys, conics, colors, opacity, ids, mask,
+                            torch.arange(ids.shape[0], device=ids.device), tb_x, block_h, block_w)
+    return _tiles_to_image(tiles, H, W, tb_x, tb_y, block_h, block_w)

@@ -19,7 +19,12 @@ objects on a device, so both packages can compute from identical inputs:
   (``gaussians``, ``opt_state`` = optax's Adam chain state or a bare
   ``AdanState``, ``step``, the best snapshot) -> the port's ``TrainState``;
   ``train_state_to_numpy`` goes back, to a flat dict of numpy arrays named as
-  ``TRAIN_STATE_KEYS`` (Adam) or ``ADAN_TRAIN_STATE_KEYS`` lists.
+  ``TRAIN_STATE_KEYS`` (Adam) or ``ADAN_TRAIN_STATE_KEYS`` lists;
+- ``batch_train_states_from_numpy``: a JAX batched ``TrainState`` (every leaf
+  with a leading image axis, as ``parallel.init_batch_train_state`` and
+  ``fit_batch`` return it) -> the port's list of ``TrainState``, one per image;
+- ``gaussian3d_params_from_numpy``: the JAX ``Gaussian3DParams`` ->
+  ``models.gaussian_3d.Gaussian3DParams``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from .compress.pipeline import Encoding, QuantizerBundle
 from .compress.quantizers import HybridQuantParams, LogQuantState, UniformQuantParams
 from .compress.residual_vq import ResidualVQState, VQCodebook
 from .core.precision import resolve_device
+from .models.gaussian_3d import Gaussian3DParams
 from .models.gaussian_image import GaussianConfig, GaussianParams, GaussianState
 from .train.optim import AdamState, AdanState
 from .train.trainer import TrainState
@@ -210,3 +216,35 @@ def train_state_to_numpy(ts: TrainState) -> dict:
         out[f"best_{k}"] = ts.best_params[i]
     keys = ADAN_TRAIN_STATE_KEYS if is_adan else TRAIN_STATE_KEYS
     return {k: out[k].detach().cpu().numpy() for k in keys}
+
+
+def _take(tree, i: int):
+    """Element ``i`` of every array leaf of a tree of NamedTuples, dataclasses
+    (flax's among them), tuples and lists, in a tree of the same types."""
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_take(x, i) for x in tree))
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{f.name: _take(getattr(tree, f.name), i)
+                                            for f in dataclasses.fields(tree)})
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_take(x, i) for x in tree)
+    if hasattr(tree, "__array__"):
+        return np.asarray(tree)[i]
+    return tree
+
+
+def batch_train_states_from_numpy(tss, device=None, seeds=None) -> list:
+    """A batched JAX ``TrainState`` (leading image axis on every leaf) -> one
+    ``TrainState`` per image; image ``i``'s generator is seeded ``seeds[i]``
+    (default ``i``), since the JAX keys do not carry over."""
+    n = np.asarray(tss.step).shape[0]
+    return [train_state_from_numpy(_take(tss, i), device,
+                                   seed=i if seeds is None else int(seeds[i]))
+            for i in range(n)]
+
+
+def gaussian3d_params_from_numpy(p, device=None) -> Gaussian3DParams:
+    """An object with ``Gaussian3DParams``' fields (the JAX one) -> the port's."""
+    dev = resolve_device(device)
+    return Gaussian3DParams(*(_t(getattr(p, k), dev, torch.float32)
+                              for k in Gaussian3DParams._fields))

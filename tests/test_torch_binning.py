@@ -1,8 +1,12 @@
 """Port selection plumbing against the JAX package: ``bin_gaussians``
 (``top_k``, ``scatter`` and ``rank``, with an overflowing tile at a small cap),
-``morton_perm`` and the chunk-list lists (``_table_bbox``/``_chunk_lists``,
-also at ``lmax=1`` where the residual interval is live). Integer outputs must
-be exactly equal, on random scenes and on every committed fitted state.
+``morton_perm``, the chunk-list lists (``_table_bbox``/``_chunk_lists``,
+also at ``lmax=1`` where the residual interval is live), and the row-range
+binners of the tile-sharded render (``bin_gaussian_rows`` flat and hier,
+``super_overflow`` included, at several ``tile_start`` on a 32x64 and an odd
+30x52 grid, also equal to the full bins' rows) and ``gather_tile_attrs``.
+Integer outputs must be exactly equal, on random scenes and on every
+committed fitted state.
 """
 
 import functools
@@ -159,3 +163,62 @@ def test_rank_bins_committed_state(path):
     for k in ("ids", "mask", "count"):
         assert torch.equal(getattr(rank, k), getattr(top_k, k)), f"rank vs top_k {k}"
     assert int(rank.count.sum()) > 0
+
+
+_jax_rows = jax.jit(jb.bin_gaussian_rows, static_argnames=("H", "W", "n_tiles", "cap", "method"))
+_jax_rows_hier = jax.jit(jb.bin_gaussian_rows_hier,
+                         static_argnames=("H", "W", "n_tiles", "cap", "super_cap"))
+
+
+@pytest.mark.parametrize("H,W", [(32, 64), (30, 52)])
+@pytest.mark.parametrize("method", ["top_k", "scatter", "rank"])
+def test_bin_gaussian_rows_scene(H, W, method):
+    """Each flat row range, the grid's end and past it included, equals the
+    JAX rows and the port's full bins sliced."""
+    xy, cov, *_ = scene(n=64, seed=21, n_invalid=3, H=H, W=W)
+    xy[:20] = 9.0                 # a crowded tile: over the cap of 8
+    pj, pt = both_projections(xy, cov, H, W)
+    full = tb.bin_gaussians(pt, H, W, cap=8, method=method)
+    T = full.ids.shape[0]
+    for start, n in ((0, 3), (2, 4), (5, 3), (T - 2, 4), (T, 2)):
+        bj = _jax_rows(pj, H=H, W=W, tile_start=start, n_tiles=n, cap=8, method=method)
+        bt = tb.bin_gaussian_rows(pt, H, W, start, n, cap=8, method=method)
+        assert_bins_equal(bt, bj, f"rows {start}+{n}")
+        m = max(0, min(n, T - start))
+        for k in ("ids", "mask", "count"):
+            assert torch.equal(getattr(bt, k)[:m], getattr(full, k)[start:start + m]), k
+        assert not bool(bt.mask[m:].any())
+
+
+@pytest.mark.parametrize("H,W", [(32, 64), (30, 52)])
+@pytest.mark.parametrize("super_cap", [0, 12])
+def test_bin_gaussian_rows_hier_scene(H, W, super_cap):
+    """The two-level row binner against JAX (ids, mask, count and
+    ``super_overflow``), with its default band budget and one small enough
+    to overflow; without overflow it equals the flat rows."""
+    xy, cov, *_ = scene(n=96, seed=22, n_invalid=4, H=H, W=W)
+    pj, pt = both_projections(xy, cov, H, W)
+    T = -(-W // 16) * -(-H // 16)
+    overflowed = 0
+    for start, n in ((0, 4), (3, 5), (T - 3, 4)):
+        bj = _jax_rows_hier(pj, H=H, W=W, tile_start=start, n_tiles=n, cap=16,
+                            super_cap=super_cap)
+        bt = tb.bin_gaussian_rows_hier(pt, H, W, start, n, cap=16, super_cap=super_cap)
+        assert_bins_equal(bt, bj, f"hier rows {start}+{n}")
+        _eq(bt.super_overflow, bj.super_overflow, "super_overflow")
+        overflowed += int(bt.super_overflow)
+        if int(bt.super_overflow) == 0:
+            assert_bins_equal(bt, _jax_rows(pj, H=H, W=W, tile_start=start, n_tiles=n, cap=16,
+                                            method="top_k"), "vs flat")
+    assert (overflowed > 0) == (super_cap > 0)
+
+
+def test_gather_tile_attrs():
+    xy, cov, colors, *_, H, W = scene(n=40, seed=23)
+    pj, pt = both_projections(xy, cov, H, W)
+    bj = _jax_bins(pj, H, W, 16, "top_k")
+    bt = tb.bin_gaussians(pt, H, W, cap=16)
+    out_j = jb.gather_tile_attrs(bj, pj.xys, jnp.asarray(colors))
+    out_t = tb.gather_tile_attrs(bt, pt.xys, torch.as_tensor(colors))
+    for a, b in zip(out_t, out_j):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))

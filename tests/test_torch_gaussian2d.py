@@ -1,5 +1,8 @@
 """Port projection (``core/gaussian2d.py``) and ``effective_cov2d`` against
-the JAX package, on random inputs and on every committed fitted state.
+the JAX package, on random inputs and on every committed fitted state; the
+legacy ``project_gaussians_2d_cholesky`` and ``project_gaussians_2d_scale_rot``
+and their VJPs (through a seeded cotangent on ``xys`` and ``conics``) too,
+the gradients within rtol 1e-5 of each column's largest.
 
 Integer outputs (radii, bbox, ``valid``, ``num_tiles_hit``) must be exactly
 equal; conics to rtol 1e-6.
@@ -104,6 +107,59 @@ def test_effective_cov2d_and_means(param):
                                np.asarray(jgi.means_of(pj, cfg_j)), rtol=1e-6, atol=1e-5)
     np.testing.assert_allclose(tgi.colors_of(st.params, cfg_t).numpy(),
                                np.asarray(jgi.colors_of(pj, cfg_j)), rtol=1e-6, atol=1e-7)
+
+
+def _legacy_inputs(param, n, H, W, seed):
+    rng = np.random.default_rng(seed)
+    if param == "cholesky":
+        means = rng.uniform(-1.1, 1.1, (n, 2)).astype(np.float32)
+        shape = np.stack([rng.uniform(0.5, 6, n), rng.uniform(-3, 3, n),
+                          rng.uniform(0.5, 6, n)], -1).astype(np.float32)
+        shape[::13, 0] = 0.0                               # singular L
+        return means, (shape,)
+    means = np.stack([rng.uniform(-10, W + 10, n), rng.uniform(-10, H + 10, n)], -1)
+    scales = rng.uniform(0.2, 8.0, (n, 2)).astype(np.float32)
+    rot = rng.uniform(0, 2 * np.pi, n).astype(np.float32)
+    return means.astype(np.float32), (scales, rot)
+
+
+@pytest.mark.parametrize("param", ["cholesky", "scale_rot"])
+@pytest.mark.parametrize("H,W", [(32, 64), (30, 52)])
+def test_legacy_projections_and_vjps(param, H, W):
+    n = 96
+    means, rest = _legacy_inputs(param, n, H, W, seed=7)
+    fj = {"cholesky": jg.project_gaussians_2d_cholesky,
+          "scale_rot": jg.project_gaussians_2d_scale_rot}[param]
+    ft = {"cholesky": tg.project_gaussians_2d_cholesky,
+          "scale_rot": tg.project_gaussians_2d_scale_rot}[param]
+    rng = np.random.default_rng(8)
+    g_xy = rng.normal(size=(n, 2)).astype(np.float32)
+    g_con = rng.normal(size=(n, 3)).astype(np.float32)
+
+    def loss_j(m, *r):
+        p = fj(m, *r, H, W)
+        return jnp.sum(p.xys * g_xy) + jnp.sum(jnp.where(p.valid[:, None], p.conics, 0.0) * g_con)
+
+    args_j = (jnp.asarray(means),) + tuple(jnp.asarray(a) for a in rest)
+    pj = jax.jit(fj, static_argnums=(len(args_j), len(args_j) + 1))(*args_j, H, W)
+    grads_j = jax.jit(jax.grad(loss_j, argnums=tuple(range(len(args_j)))))(*args_j)
+    args_t = tuple(torch.as_tensor(a).requires_grad_(True) for a in (means,) + rest)
+    pt = ft(*args_t, H, W)
+    for k in ("radii", "num_tiles_hit", "valid"):
+        np.testing.assert_array_equal(getattr(pt, k).numpy(), np.asarray(getattr(pj, k)), k)
+    # the covariance passes through sin / cos or the L L^T products first, whose
+    # last bits differ between XLA and torch, and the conic inverts it
+    for k in ("xys", "conics"):
+        np.testing.assert_allclose(getattr(pt, k).detach().numpy(), np.asarray(getattr(pj, k)),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+    assert 0 < int(pt.valid.sum()) < n
+    loss_t = (torch.sum(pt.xys * torch.as_tensor(g_xy)) + torch.sum(
+        torch.where(pt.valid[:, None], pt.conics, 0.0) * torch.as_tensor(g_con)))
+    for a, b in zip(torch.autograd.grad(loss_t, args_t), grads_j):
+        b = np.asarray(b)
+        scale = np.abs(b).max(axis=0) if b.ndim > 1 else np.abs(b).max()
+        err = np.abs(a.numpy() - b)
+        assert (err <= 1e-5 * scale + 1e-12).all(), f"{err.max(axis=0)} vs column max {scale}"
 
 
 def test_slv_and_psd_helpers():

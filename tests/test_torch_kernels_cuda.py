@@ -634,3 +634,29 @@ def test_adan_cholesky_step_auto_vs_xla(card):
     assert raster_list.chunk_backward.launches == c0 + 1
     assert raster_list.chunk_list_forward.launches == b0 + 1
     assert int(ts.opt_state.count) == 1 and bool(torch.isfinite(psnr))
+
+
+@pytest.mark.cuda
+def test_train_chunk_render_fn_default_is_bit_equal(card):
+    """``train_chunk`` with ``render_fn=render`` equals the default step bit
+    for bit on the card: 30 steps through ``'auto'`` (kernels B and C), a
+    prune and a growth."""
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    H = W = 256
+    cfg = gi.GaussianConfig(H=H, W=W, max_num_points=400)
+    tcfg = tr.TrainConfig(iterations=30, grow_iter=30, prune_iter=30, lr=0.02)
+    gt = torch.as_tensor(np.random.default_rng(33).uniform(0, 1, (H, W, 3)).astype(np.float32),
+                         device=card)
+    ts0 = tr.init_train_state(cfg, tcfg, 200, seed=6, device=card)
+    draws = torch.rand((400, 3), generator=torch.Generator().manual_seed(7)).to(card)
+    c0 = raster_list.chunk_backward.launches
+    a, ma = tr.train_chunk(ts0, gt, cfg, tcfg, 30, True, True, grow_draws=draws)
+    b, mb = tr.train_chunk(ts0, gt, cfg, tcfg, 30, True, True, grow_draws=draws,
+                           render_fn=gi.render)
+    assert raster_list.chunk_backward.launches == c0 + 60
+    assert torch.equal(ma["psnr"], mb["psnr"]) and int(ma["n_added"]) > 0
+    for x, y in zip((*a.gaussians.params, a.gaussians.active, a.best_psnr, *a.opt_state.mu),
+                    (*b.gaussians.params, b.gaussians.active, b.best_psnr, *b.opt_state.mu)):
+        assert torch.equal(x, y)
