@@ -25,13 +25,16 @@ five hand-written CUDA kernels against their plain PyTorch versions. Phases:
    (``chunk_list_forward``) on a fitted
    state at kc 128 and kc 64 and on kodim01 in Morton order, and over the
    dense, sweep and range enumerations on kodim01 in stream and Morton order
-   and on the fitted state, and on the synthetic grid. Tolerance: ``|kernel - plain| <= 2e-5 +
+   and on the fitted state, on the synthetic grid and on the converged
+   2040x1344 state (``results/repr_states_2k/mosaic2k.npz``, Morton order,
+   kc 128). Tolerance: ``|kernel - plain| <= 2e-5 +
    1e-5 |plain|`` at every pixel but at most 0.01% of them, where the two
    evaluations of the expanded quadratic may round across the sigma >= 0 or
    alpha >= 1/255 gate. Kernel C (``chunk_backward``: a block's warps share
    its rows' (row, bbox tile) pairs and sum in Gaussian-centred offsets) on a
    fitted state in Morton order at kc 128 and kc 64, on kodim01 in stream
-   order, through ``dense_backward``, and on the synthetic grid; kernel D
+   order, through ``dense_backward``, on the synthetic grid and on the 2K
+   state (two seeded normal cotangents); kernel D
    (``tile_table_backward``) on kodim01's binned table, on the synthetic grid
    (ragged edge tiles), on a synthetic tile forced over its cap (kernel B on
    it too: more members than its shared list holds), and (after
@@ -46,7 +49,11 @@ five hand-written CUDA kernels against their plain PyTorch versions. Phases:
    (after phase 4) the fit and 2K states: ids, mask and count equal exactly,
    and equal to ``'hier'`` wherever its ``super_overflow`` is 0;
 4. main paths, each with every launch count set to 0 just before it and read
-   just after. Decode: each of the 57 committed streams
+   just after. ``fit_image`` and ``fit_image_quantized`` run their chunks as
+   replays of one captured CUDA graph on the routes of
+   ``train.trainer.CAPTURE_SET`` (``'auto'`` at 768x512, ``'pallas'`` + E),
+   and eagerly elsewhere (the odd grid, ``'hier'``); the launch counts
+   equal an eager run's. Decode: each of the 57 committed streams
    (``results/bitstreams*/``: 48 lsq Kodak streams of rounds 3 and 4, 6 with
    VQ colour, 3 of format v1) through ``decode_bitstream`` (binned),
    ``prepare_decode`` + ``decode_frame`` and
@@ -137,7 +144,20 @@ five hand-written CUDA kernels against their plain PyTorch versions. Phases:
    PSNR rises), its step time and device busy share; (l2)
    ``pixel_count_map`` at the fit state on the card against the CPU's (at
    most 0.01% of pixels differ). Their launches are reported apart too
-   (``report["phases"]["parallel"]``, ``["legacy"]``);
+   (``report["phases"]["parallel"]``, ``["legacy"]``). (h) The fused
+   dispatch (run after phase 5's timings, so that those keep their
+   protocol): the Kodak ``'auto'`` fit run again graphed, ``torch.equal``
+   (best state, history) to phase 4's and to the same schedule run eagerly
+   through ``train_chunk``, launches equal, with both wall times and peak
+   memories; phase (a)'s binned fit and phase (f)'s coding path
+   ``torch.equal`` to their schedules run eagerly (``train_chunk``,
+   ``quant_train_chunk``); a 2040x1344 ``'auto'`` fit (B + C, 10,000 ->
+   20,000 rows, 100 steps, a prune every 50) on the render of the 2K state,
+   graphed and eager ``torch.equal``, rising 1 dB; then, for the Kodak
+   ``'auto'``, ``'pallas'`` + E, 2K and QAT steps, the step time of 5
+   replayed chunks (CUDA events), the capture's time, the replays' device
+   busy (profiler) beside the eager median of 50 steps at the same state.
+   Its launches are reported apart (``report["phases"]["fused dispatch"]``);
 5. timing with CUDA events: per frame (median of 50 frames) of the full
    decodes (parse included), the bin-once ``decode_frame`` and a fitted-state
    render; per train step (median of 50) after the growth, through ``'auto'``
@@ -179,9 +199,9 @@ five hand-written CUDA kernels against their plain PyTorch versions. Phases:
 Each kernel's row in the JSON line carries ``device_ms_by_state``,
 ``ms_by_state``, ``launches_by_state``, ``bound_ms_by_state`` and
 ``loss_ms`` beside its single-state ``ms``, ``device_ms`` and ``bound_ms``.
-The last five lines of standard output are phase (g)'s numbers, phases
-(p) and (l)'s, the kernels' JSON line, the card's ``nvidia-smi`` name and
-power limit, and ``{"ok": true, ...}``. Any
+The last six lines of standard output are phase (g)'s numbers, phases
+(p) and (l)'s, phase (h)'s, the kernels' JSON line, the card's
+``nvidia-smi`` name and power limit, and ``{"ok": true, ...}``. Any
 failed check exits nonzero before those lines. A fuller report is written to
 ``chiprun_out/chip_smoke_report.json``. Nothing here imports JAX or the JAX
 package.
@@ -191,6 +211,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import importlib
 import json
 import statistics
 import subprocess
@@ -249,6 +270,12 @@ PAR = dict(images=4, max_points=5000, iterations=500, prune_iter=50, grow_iter=2
 # held card against CPU, the Adam steps on the card; the pixel-count ties allowed
 LEGACY = dict(points=5000, sh_degree=3, agree_steps=20, steps=300)
 COUNT_FRAC = 1e-4
+# phase 4 (h), the fused dispatch: the converged 2K state whose render is the
+# 2K fit's target, that fit's points (scripts/fit_2k.py's), steps and rise;
+# the Kodak fit's rise (phase 4's); the chunk replays timed a route
+STATE_2K = ROOT / "results" / "repr_states_2k" / "mosaic2k.npz"
+FUSED = dict(k2_points=10_000, k2_fit=dict(iterations=100, prune_iter=50), k2_rise_db=1.0,
+             rise_db=5.0, replays=5)
 
 report: dict = {"phases": {}}
 
@@ -516,10 +543,12 @@ def entry_points(dev, target: torch.Tensor, fit_state, kernels: dict) -> tuple:
     from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
     from gaussianimage_plus_tpu_torch.scripts import eval_kodak, train_quantize
     from gaussianimage_plus_tpu_torch.scripts import train as train_cli
-    from gaussianimage_plus_tpu_torch.train import lpips as lp
     from gaussianimage_plus_tpu_torch.train import trainer as tr
     from gaussianimage_plus_tpu_torch.train.metrics import psnr as psnr_fn
     from gaussianimage_plus_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    # train/__init__ exports the function lpips under the module's name
+    lp = importlib.import_module("gaussianimage_plus_tpu_torch.train.lpips")
     from gaussianimage_plus_tpu_torch.utils.image_io import load_image, save_image
 
     E = ENTRY
@@ -994,6 +1023,246 @@ def parallel_and_legacy(dev, fit_target: torch.Tensor, fit_state, state2k, cfg2k
     return info_p, info_l, line
 
 
+def eager_fit(target: torch.Tensor, cfg, fit: dict, points: int, init_state=None) -> tuple:
+    """``fit_image``'s schedule (a prune every ``prune_iter``, growth at each
+    grow period's end but the last, the final fill at ``iterations -
+    grow_iter``) run chunk by chunk through ``train_chunk``, eagerly, from
+    ``fit_image``'s initial state: (best state, history, best PSNR, best
+    step)."""
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    tc = tr.TrainConfig(**fit)
+    chunk = tc.prune_iter
+    ts = tr.init_train_state(cfg, tc, points, seed=FIT_SEED, gaussians=init_state,
+                             device=target.device)
+    hist = {"loss": [], "psnr": [], "n_pruned": [], "n_added": [], "num_active": []}
+    for end in range(chunk, tc.iterations + 1, chunk):
+        grow = tc.adaptive_add and end % tc.grow_iter == 0 and end < tc.iterations
+        ts, m = tr.train_chunk(ts, target, cfg, tc, chunk, tc.prune, grow,
+                               end == tc.iterations - tc.grow_iter)
+        hist["loss"].append(m["loss"])
+        hist["psnr"].append(m["psnr"])
+        hist["n_pruned"].append(m["n_pruned"][None])
+        hist["n_added"].append(m["n_added"][None])
+        hist["num_active"].append(ts.gaussians.num_active[None])
+    return (tr.restore_best(ts), {k: torch.cat(v) for k, v in hist.items()},
+            float(ts.best_psnr), int(ts.best_iter))
+
+
+def fused_dispatch(dev, kernels: dict, fit_target: torch.Tensor, cfg_fit, res, cfg_bin, res_bin,
+                   cfg_q, tcfg_q, qcfg, res_q, qat_s: float, names: dict) -> tuple:
+    """Phase 4 (h): the fused dispatch. ``fit_image`` and
+    ``fit_image_quantized`` run their chunks as replays of one captured CUDA
+    graph (``train.trainer.ChunkGraph``) on the routes of ``CAPTURE_SET``;
+    here each graphed run is held ``torch.equal`` to the same schedule run
+    eagerly through ``train_chunk`` (and ``quant_train_chunk``), with equal
+    launch counts: the Kodak ``'auto'`` fit (B + C), run again graphed with
+    its wall time and peak memory; the binned fit (``'pallas'`` + E: A + D +
+    E) of phase (a); the coding path of phase (f); and a 2040x1344 ``'auto'``
+    fit (B + C), 10,000 -> 20,000 rows, on the render of the converged 2K
+    state ``results/repr_states_2k/mosaic2k.npz``, which must rise. Then per
+    route the step time of replays (CUDA events around ``FUSED['replays']``
+    chunk replays, the capture timed apart) beside the eager median of 50
+    steps at the same state, and the replays' device busy from the profiler.
+    Returns the phase's report and a one-line summary; its launches repeat
+    phase 4's paths and are reported apart."""
+    from gaussianimage_plus_tpu_torch.compress import pipeline as pl
+    from gaussianimage_plus_tpu_torch.interop import config_from_numpy, state_from_numpy
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    info: dict = {}
+
+    def counts() -> dict:
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    def run(fn):
+        """``fn()``, its seconds (host clock to a sync), launches and peak
+        memory."""
+        for k in kernels.values():
+            k.launches = 0
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        value = fn()
+        sync()
+        return value, time.perf_counter() - t0, counts(), torch.cuda.max_memory_allocated(dev)
+
+    def same(tag, a, b):
+        ta, tb = tr._tensors(a), tr._tensors(b)
+        check(len(ta) == len(tb) > 0, f"(h) {tag}: {len(ta)} against {len(tb)} tensors")
+        for i, (x, y) in enumerate(zip(ta, tb)):
+            check(torch.equal(x, y), f"(h) {tag}: graphed and eager differ in tensor {i} "
+                  f"{tuple(x.shape)}")
+
+    def fit_pair(tag, target, cfg, fit, points, rise_db):
+        """The graphed ``fit_image`` against the eager chunk loop."""
+        check(tr.captures(cfg, dev), f"(h) {tag}: not a route of CAPTURE_SET")
+        tc = tr.TrainConfig(**fit)
+        g, g_s, g_n, g_mem = run(lambda: tr.fit_image(target, cfg, tc, points, seed=FIT_SEED,
+                                                      device=dev))
+        (e_state, e_hist, e_best, e_iter), e_s, e_n, e_mem = run(
+            lambda: eager_fit(target, cfg, fit, points))
+        same(f"{tag} best state", g.state, e_state)
+        for k, v in e_hist.items():
+            same(f"{tag} history {k}", g.history[k], v)
+        check(g.best_psnr == e_best and g.best_iter == e_iter, f"(h) {tag}: best differs")
+        check(g_n == e_n, f"(h) {tag}: launches graphed {g_n}, eager {e_n}")
+        psnr = g.history["psnr"]
+        check(g.best_psnr >= float(psnr[0]) + rise_db, f"(h) {tag}: best {g.best_psnr:.4f} dB "
+              f"not {rise_db} dB above the first step's {float(psnr[0]):.4f}")
+        info[tag] = dict(graphed_s=g_s, eager_s=e_s, launches=g_n, peak_gb_graphed=g_mem / 1e9,
+                         peak_gb_eager=e_mem / 1e9, best_psnr=g.best_psnr,
+                         first_psnr=float(psnr[0]), steps=fit["iterations"])
+        log(f"  (h) {tag}: {fit['iterations']} steps graphed {g_s:.3f} s, eager {e_s:.3f} s; "
+            f"torch.equal (best state, history), launches equal ("
+            + ", ".join(f"{k.upper()} {n}" for k, n in g_n.items() if n)
+            + f"); PSNR {float(psnr[0]):.4f} -> best {g.best_psnr:.4f} dB; peak memory graphed "
+            f"{g_mem / 1e9:.3f} GB, eager {e_mem / 1e9:.3f} GB")
+        return g
+
+    def step_times(tag, runner, carry, chunk, eager_step, kernel_names):
+        """Per-step ms of ``FUSED['replays']`` chunk replays (CUDA events),
+        the capture's ms, the replays' device busy a step, beside the eager
+        median of 50 steps."""
+        runner.run(carry, 1)                        # the eager warm-up chunk
+        sync()
+        t0 = time.perf_counter()
+        runner.graph = tr.ChunkGraph(runner.fn, carry)
+        sync()
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        n = FUSED["replays"]
+        runner.run(carry, 1)
+        sync()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        runner.run(carry, n)
+        end.record()
+        end.synchronize()
+        graphed = start.elapsed_time(end) / (n * chunk)
+        busy, rows, missing = device_time_per_call(lambda: runner.run(carry, 1), calls=2,
+                                                   kernels=kernel_names)
+        busy /= chunk
+        eager = median_ms(eager_step)
+        info.setdefault("steps", {})[tag] = dict(
+            graphed_ms=graphed, eager_ms=eager, busy_ms=busy, capture_ms=capture_ms,
+            chunk=chunk, replays=n, top=[(k, ms / chunk) for k, ms in rows[:6]],
+            not_traced=missing)
+        log(f"  (h) {tag} step: graphed {graphed:.4f} ms ({n} replays of {chunk} steps), eager "
+            f"{eager:.4f} ms (median of {FRAMES}); device busy under replay {busy:.4f} ms a step "
+            f"({busy / graphed:.1%} of the graphed step); capture {capture_ms:.1f} ms"
+            + (f"; not traced: {', '.join(missing)}" if missing else ""))
+        return graphed, eager, busy
+
+    def train_steps(tag, state, cfg, target, chunk, kernel_names):
+        tc = tr.TrainConfig(prune_iter=chunk)
+        ts = tr.init_train_state(cfg, tc, 0, gaussians=state)
+        if gi.resolve_backend(cfg, dev) in ("list", "list_t"):
+            ts = tr._morton_resort(ts, cfg)
+        tx = tr.make_optimizer(tc)
+        box = [ts]
+
+        def one_step():
+            box[0] = tr.train_step(box[0], target, cfg, tc, tx)[0]
+
+        runner = tr._fit_runner(target, cfg, tc, chunk, True)
+        img = torch.zeros((cfg.H, cfg.W, 3), device=dev)
+        return step_times(tag, runner, (ts, img), chunk, one_step, kernel_names)
+
+    log("[4] main path (h): the fused dispatch, graphed against eager")
+    # the Kodak 'auto' fit, graphed again: equal to phase 4's run and to the eager loop
+    g_fit = fit_pair("Kodak fit, 'auto'", fit_target, cfg_fit, FIT, FIT_POINTS, FUSED["rise_db"])
+    same("Kodak fit against phase 4's", g_fit.state, res.state)
+    # the binned fit of phase (a) against the eager loop
+    (e_state, e_hist, _, _), e_s, e_n, _ = run(lambda: eager_fit(fit_target, cfg_bin, FIT,
+                                                                FIT_POINTS))
+    same("binned fit best state", res_bin.state, e_state)
+    for k, v in e_hist.items():
+        same(f"binned fit history {k}", res_bin.history[k], v)
+    check(all(e_n[k] == FIT["iterations"] for k in "ade"), f"(h) binned eager launches {e_n}")
+    info["binned fit, 'pallas' + E"] = dict(eager_s=e_s, launches=e_n)
+    log(f"  (h) binned fit, 'pallas' + E: phase (a)'s graphed fit torch.equal to the eager "
+        f"loop ({e_s:.3f} s)")
+
+    # the coding path of phase (f) against its schedule run eagerly
+    warm = QAT["warmup_iter"]
+
+    def eager_coding():
+        ts = tr.init_train_state(cfg_q, tcfg_q, FIT_POINTS, FIT_SEED, gaussians=res.state)
+        warm_psnr = []
+        for _ in range(warm // tcfg_q.prune_iter):
+            ts, m = tr.train_chunk(ts, fit_target, cfg_q, tcfg_q, tcfg_q.prune_iter, tcfg_q.prune,
+                                   False)
+            warm_psnr.append(m["psnr"])
+        state = tr.restore_best(ts)
+        lr = tcfg_q.lr * tcfg_q.lr_gamma ** (warm // tcfg_q.lr_step_size)
+        carry = [state, tr.make_adam(lr, tcfg_q.lr_step_size, tcfg_q.lr_gamma).init(state.params),
+                 pl.init_quantizers(state, cfg_q, qcfg, generator=ts.generator)]
+        best, psnrs, losses = None, [], []
+        for _ in range(QAT["steps"] // tcfg_q.prune_iter):
+            *carry, m = pl.quant_train_chunk(*carry, fit_target, cfg_q, qcfg, lr,
+                                             tcfg_q.prune_iter, best=best)
+            best = m["best"]
+            psnrs.append(m["psnr"])
+            losses.append(m["loss"])
+        return (carry[0]._replace(params=best[1]),
+                carry[2]._replace(xy=best[2][0], cov=best[2][1], color=best[2][2],
+                                  color_vq=best[3]),
+                float(best[0]), torch.cat(warm_psnr), torch.cat(psnrs), torch.cat(losses), lr)
+
+    (q_state, q_bundle, q_best, q_warm, q_psnr, q_loss, model_lr), q_s, q_n, _ = run(eager_coding)
+    check(tr.captures(cfg_q, dev), "(h) coding path: not a route of CAPTURE_SET")
+    same("coding path state", res_q.state, q_state)
+    same("coding path bundle", res_q.bundle, q_bundle)
+    same("coding path PSNR", (res_q.metrics["warmup_psnr"], res_q.metrics["psnr"],
+                              res_q.metrics["loss"]), (q_warm, q_psnr, q_loss))
+    check(res_q.best_psnr == q_best, "(h) coding path: best PSNR differs")
+    info["coding path"] = dict(graphed_s=qat_s, eager_s=q_s, launches=q_n, best_psnr=q_best)
+    log(f"  (h) coding path: {warm} + {QAT['steps']} steps graphed {qat_s:.3f} s (phase (f)), "
+        f"eager {q_s:.3f} s; torch.equal (state, bundle, PSNRs), best {q_best:.4f} dB")
+
+    # the 2K 'auto' fit (B + C) on the render of the converged 2K state
+    d2 = dict(np.load(STATE_2K))
+    cfg2 = config_from_numpy(d2)
+    check(gi.resolve_backend(cfg2, dev) == "list_t",
+          f"(h) 2K: 'auto' resolved to {gi.resolve_backend(cfg2, dev)!r}")
+    with torch.no_grad():
+        target2 = gi.render(state_from_numpy(d2, device=dev), cfg2).contiguous()
+    g2 = fit_pair("2K fit, 'auto'", target2, cfg2, FUSED["k2_fit"], FUSED["k2_points"],
+                  FUSED["k2_rise_db"])
+
+    # per-step times: replays against the eager step, at each route's state
+    nb, nc = names["b"], names["c"]
+    train_steps(f"Kodak 'auto', {int(res.state.num_active)} active", res.state, cfg_fit,
+                fit_target, FIT["prune_iter"], nb + nc)
+    train_steps(f"Kodak 'pallas' + E, {int(res_bin.state.num_active)} active", res_bin.state,
+                cfg_bin, fit_target, FIT["prune_iter"], names["a"] + names["d"] + names["e"])
+    train_steps(f"2K 'auto', {int(g2.state.num_active)} active", g2.state, cfg2, target2,
+                FUSED["k2_fit"]["prune_iter"], nb + nc)
+    st_q, b_q = res_q.state, res_q.bundle
+    mos = tr.make_optimizer(tcfg_q).init(st_q.params)
+    box = [(st_q, mos, b_q, None)]
+
+    def qat_step():
+        s_, m_, b_, best_ = box[0]
+        s_, m_, b_, mm = pl.quant_train_chunk(s_, m_, b_, fit_target, cfg_q, qcfg, model_lr, 1,
+                                              best=best_)
+        box[0] = (s_, m_, b_, mm["best"])
+
+    step_times(f"QAT 'auto', {int(st_q.num_active)} active",
+               pl._qat_runner(fit_target, cfg_q, qcfg, model_lr, tcfg_q.prune_iter),
+               (st_q, mos, b_q, pl._initial_best(st_q, b_q)), tcfg_q.prune_iter, qat_step,
+               nb + nc)
+    st = info["steps"]
+    line = "(h) fused dispatch: " + "; ".join(
+        f"{k} {v['graphed_ms']:.4f} ms graphed / {v['eager_ms']:.4f} eager (busy "
+        f"{v['busy_ms']:.4f}, capture {v['capture_ms']:.0f} ms)" for k, v in st.items()) + (
+        "; fits graphed / eager: " + ", ".join(
+            f"{k} {v['graphed_s']:.2f} / {v['eager_s']:.2f} s" for k, v in info.items()
+            if "graphed_s" in v))
+    return info, line
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1096,7 +1365,8 @@ def run() -> None:
 
     # ---- fixtures
     streams = sorted((ROOT / "results").glob("bitstreams*/*.gipb"))
-    states = sorted((ROOT / "results").glob("repr_states_*/*.npz"))
+    states = sorted(p for d in ("repr_states_cn", "repr_states_plain")
+                    for p in (ROOT / "results" / d).glob("*.npz"))
     check(len(streams) == 57 and len(states) == 48,
           f"fixtures: {len(streams)} streams, {len(states)} states")
     kodim01 = (ROOT / "results" / "bitstreams_r4" / "kodim01.gipb").read_bytes()
@@ -1236,6 +1506,22 @@ def run() -> None:
         (cot_sm["L2"],)))
     compare_c("synthetic 500x760", proj_o, col_o, Ho, Wo, 128,
               {"normal": normal_cotangent(Ho, Wo, 3)})
+    # kernels B and C on the converged 2K state (2040x1344, 19,691 of 20,000
+    # rows) in Morton order, as the 2K 'auto' fit trains it (list_t, kc 128)
+    d_2k = dict(np.load(STATE_2K))
+    cfg_2k = config_from_numpy(d_2k)
+    st_2k = morton_state(state_from_numpy(d_2k, device=dev), cfg_2k)
+    proj_2k = gi.project(st_2k.params, st_2k.active, st_2k.bound, cfg_2k)
+    col_2k = gi.colors_of(st_2k.params, cfg_2k)
+    inp_2k = raster_list.list_inputs(proj_2k, col_2k, torch.ones((cfg_2k.max_num_points,),
+                                                                 device=dev),
+                                     cfg_2k.H, cfg_2k.W, 128)
+    err["b"] = max(err["b"], compare("B 2K state Morton kc 128",
+                                     kernel_b(*inp_2k, 128, cfg_2k.H, cfg_2k.W),
+                                     plain_b(*inp_2k, 128, cfg_2k.H, cfg_2k.W)))
+    compare_c("2K state Morton", proj_2k, col_2k, cfg_2k.H, cfg_2k.W, 128,
+              {"normal": normal_cotangent(cfg_2k.H, cfg_2k.W, 4),
+               "normal, another seed": normal_cotangent(cfg_2k.H, cfg_2k.W, 5)})
 
     # kernel D on binned tables (cap 256), kernel E against 'top_k' and 'hier'
     def d_inputs(proj, colors, h, w, bins=None):
@@ -2183,6 +2469,13 @@ def run() -> None:
     total = {key: sum(n[key] for n in path_launches.values()) for key in kernels}
     report["path_launches"] = path_launches
 
+    # (h) the fused dispatch, after phase 5's step timings (so that those keep
+    # their protocol); launches reported apart, as (g)'s
+    report["phases"]["fused dispatch"], fused_line = fused_dispatch(
+        dev, kernels, fit_target, cfg_fit, res, cfg_bin, res_bin, cfg_q, tcfg_q, qcfg, res_q,
+        qat_s, dict(a=names_a, b=names_b, c=["chunk_backward_kernel"], d=names_d,
+                    e=["tile_bin_kernel"]))
+
     # rule 2's ranking: each kernel's launches on the main paths taken at the
     # state they run at (the odd-grid fit's at the fit state, which it is cut
     # from, and the gradients of path (e) at kodim01's), its device time and
@@ -2328,6 +2621,7 @@ def run() -> None:
     write_report()
     log(entry_line)
     log(par_line)
+    log(fused_line)
     log(json.dumps({"kernels": kernel_rows}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

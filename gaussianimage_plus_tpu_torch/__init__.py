@@ -7,3 +7,5 @@ and are built at first use. Nothing here imports JAX.
 """
 
 from .core import precision  # noqa: F401  (sets the float32 policy on import)
+
+__version__ = "0.1.0"

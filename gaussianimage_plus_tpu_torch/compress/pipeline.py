@@ -9,15 +9,19 @@ QAT steps (``quant_train_chunk``), the encoder (``compress_wo_ec``,
 :412-443), the decode (``_decode_attributes``, ``decompress_wo_ec``,
 ``prepare_decode``/``decode_frame``), ``morton_reorder`` and the bpp
 accounting (``analysis_wo_ec``, :469-509). The JAX ``_uniform_fwd`` is
-``quantizers.uniform_forward``. ``quant_train_macro_chunk`` fuses chunks into
-one TPU dispatch and is step-for-step equal to a loop of chunks, which is what
-``compress.trainer`` runs.
+``quantizers.uniform_forward``. ``quant_train_macro_chunk`` (``:311-341``)
+runs chunks of QAT steps step for step as successive ``quant_train_chunk``
+calls: on the card, on a route of ``train.trainer.CAPTURE_SET``, as replays of
+one captured chunk (``train.trainer.ChunkGraph``), as the JAX one fuses them
+into one TPU dispatch; elsewhere eagerly.
 
 Every quantizer statistic is taken over the active rows only. The QAT step
 never re-sorts the rows (the JAX loop does not), masks the model update of
 inactive rows after the moment update (their moments still move, unlike the
 fit's ``zero_rows``), and carries the best snapshot on the device with
-``torch.where``: no step synchronises with the host.
+``torch.where``: no step synchronises with the host (the quantizers' bounds
+are filled on the device, and the log quantizer's float64 ``log`` and ``exp``
+are device ops), so a chunk of steps can be captured.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..models.gaussian_image import (GaussianConfig, GaussianParams,
 from ..train.losses import loss_fn
 from ..train.metrics import psnr as psnr_fn
 from ..train.optim import Adam, AdamState, make_adam, step_lr
+from ..train.trainer import ChunkRunner, captures
 from .quantizers import (HybridQuantParams, LogQuantState, UniformQuantParams,
                          _exp, _log, clip, fake_quantize_half, hybrid_size,
                          log_decompress, ste_round, uniform_decompress,
@@ -146,7 +151,7 @@ def _log_fwd_masked(x: torch.Tensor, active: torch.Tensor, bits: int):
     beta = torch.where(m, log_x, big).min()
     max_log = torch.where(m, log_x, -big).max()
     scale = torch.maximum((max_log - beta) / (qmax - qmin),
-                          torch.tensor(1e-12, device=x.device))
+                          torch.full((), 1e-12, device=x.device))
     quant = ste_round(clip((log_x - beta) / scale, qmin, qmax))
     return _exp(quant * scale + beta), quant, LogQuantState(beta=beta, scale=scale)
 
@@ -277,8 +282,7 @@ def quant_train_chunk(state: GaussianState, model_opt_state: AdamState,
     dev = state.active.device
     gt = gt.to(dev)
     if best is None:
-        best = (torch.full((), -float("inf"), device=dev), state.params,
-                (bundle.xy, bundle.cov, bundle.color), bundle.color_vq)
+        best = _initial_best(state, bundle)
     m = state.active[:, None]
     losses, psnrs = [], []
     for _ in range(n_steps):
@@ -318,6 +322,53 @@ def quant_train_chunk(state: GaussianState, model_opt_state: AdamState,
             psnrs.append(cur_psnr)
     return state, model_opt_state, bundle, {"loss": torch.stack(losses),
                                             "psnr": torch.stack(psnrs), "best": best}
+
+
+def _initial_best(state: GaussianState, bundle: QuantizerBundle):
+    """The ``best`` carry before the first QAT step."""
+    return (torch.full((), -float("inf"), device=state.active.device), state.params,
+            (bundle.xy, bundle.cov, bundle.color), bundle.color_vq)
+
+
+def _qat_runner(gt: torch.Tensor, cfg: GaussianConfig, qcfg: QuantConfig, model_lr: float,
+                chunk: int, warm_on_clone: bool = False) -> ChunkRunner:
+    """The chunk runner of ``quant_train_macro_chunk``: carry ``(state,
+    model_opt_state, bundle, best)``, outputs per chunk ``(loss, psnr)``,
+    each [chunk]. A graph keeps its own copy of ``gt``."""
+    graph = captures(cfg, gt.device)
+    gt = gt.clone() if graph else gt
+
+    def fn(carry):
+        state, mos, bundle, m = quant_train_chunk(*carry[:3], gt, cfg, qcfg, model_lr, chunk,
+                                                  best=carry[3])
+        return (state, mos, bundle, m["best"]), (m["loss"], m["psnr"])
+
+    return ChunkRunner(fn, graph, warm_on_clone)
+
+
+def _qat_macro(runner: ChunkRunner, state, model_opt_state, bundle, n_chunks: int, best=None):
+    best = _initial_best(state, bundle) if best is None else best
+    (state, model_opt_state, bundle, best), (loss, psnr) = runner.run(
+        (state, model_opt_state, bundle, best), n_chunks)
+    return state, model_opt_state, bundle, {"loss": loss.reshape(-1), "psnr": psnr.reshape(-1),
+                                            "best": best}
+
+
+def quant_train_macro_chunk(state: GaussianState, model_opt_state: AdamState,
+                            bundle: QuantizerBundle, gt: torch.Tensor, cfg: GaussianConfig,
+                            qcfg: QuantConfig, model_lr: float, n_chunks: int, chunk: int,
+                            best=None):
+    """``n_chunks`` chunks of ``chunk`` QAT steps, step for step successive
+    ``quant_train_chunk`` calls carrying ``best``: the model Adam, the three
+    quantizer Adams, the VQ codebooks' EMA step and the best snapshot. On
+    the card, on a route of ``train.trainer.CAPTURE_SET``, the chunks are
+    replays of one captured chunk, warmed up first on a clone of the carry;
+    elsewhere they run eagerly. Returns (state, model_opt_state, bundle,
+    metrics) with ``loss`` and ``psnr`` [n_chunks * chunk] and the ``best``
+    carry."""
+    gt = gt.to(state.active.device)
+    runner = _qat_runner(gt, cfg, qcfg, model_lr, chunk, warm_on_clone=True)
+    return _qat_macro(runner, state, model_opt_state, bundle, n_chunks, best)
 
 
 class Encoding(NamedTuple):

@@ -59,8 +59,9 @@ def uniform_qrange(bits: int, signed: bool = False) -> Tuple[int, int]:
 
 def clip(x: torch.Tensor, lo, hi) -> torch.Tensor:
     """``jnp.clip(x, lo, hi)``, its gradient included (one half at a tie)."""
-    lo_t = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
-    hi_t = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
+    # filled on the device: a host scalar's copy would sync the QAT step
+    lo_t = torch.full((), lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.full((), hi, dtype=x.dtype, device=x.device)
     return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 

@@ -4,15 +4,17 @@ Port of ``gaussianimage_plus_tpu/compress/trainer.py`` (``QuantFitResult``,
 ``fit_image_quantized``, ``encode_decode_eval``), after the reference
 train_quantize.py:21-269:
 
-1. the warmup: ``warmup_iter`` steps of the fit (``train.trainer.train_chunk``
-   with its prune and grow cadence);
+1. the warmup: ``warmup_iter`` steps of the fit with its prune and grow
+   cadence, run as ``train.trainer.train_macro_chunk`` segments that end at
+   growths and log points (``fit_image``'s rule);
 2. the best snapshot restored, a fresh model Adam at the decayed learning
    rate, the quantizers initialised from the data;
-3. the QAT loop (``pipeline.quant_train_chunk``) carrying the best quantized
-   snapshot; no prune after the restore: the reference prunes its final
-   state and then loads the best snapshot over it, so the state it encodes
-   is the snapshot unpruned (the encoder's own prune of quantized-invalid
-   points is the only one);
+3. the QAT loop (``pipeline.quant_train_macro_chunk``) carrying the best
+   quantized snapshot, in segments that end at log points (the JAX
+   ``n_per_macro`` rule with no relay cap); no prune after the restore: the
+   reference prunes its final state and then loads the best snapshot over
+   it, so the state it encodes is the snapshot unpruned (the encoder's own
+   prune of quantized-invalid points is the only one);
 4. encode, decode, bpp, PSNR, MS-SSIM, the rANS rate and the ``.gipb``.
 
 Deviation: ``encode_decode_eval`` times the full decode with CUDA events over
@@ -35,12 +37,13 @@ from ..models.gaussian_image import GaussianConfig, GaussianState
 from ..train.losses import ms_ssim
 from ..train.metrics import psnr as psnr_fn
 from ..train.optim import make_adam
-from ..train.trainer import (TrainConfig, init_train_state, restore_best,
-                             seconds_per_call, train_chunk)
+from ..train.trainer import (TrainConfig, _fit_runner, _macro, init_train_state,
+                             restore_best, seconds_per_call)
 from .bitstream import decode_bitstream, serialize_bitstream
 from .entropy import gaussian_global_bits
 from .pipeline import (QuantConfig, QuantizerBundle, analysis_wo_ec, compress_wo_ec,
-                       decompress_wo_ec, init_quantizers, morton_reorder, quant_train_chunk)
+                       _qat_macro, _qat_runner, decompress_wo_ec, init_quantizers,
+                       morton_reorder)
 
 
 class QuantFitResult(NamedTuple):
@@ -72,24 +75,32 @@ def fit_image_quantized(gt, cfg: GaussianConfig, tcfg: TrainConfig, qcfg: QuantC
     t0 = time.perf_counter()
     # the last growth before the warmup ends fills every free slot
     last_grow = (warmup_iter - 1) // tcfg.grow_iter * tcfg.grow_iter
+    ends = [e for e in range(chunk, warmup_iter + 1, chunk)
+            if e == warmup_iter or (tcfg.adaptive_add and e % tcfg.grow_iter == 0)
+            or (log_every and e % log_every == 0)]
+    runner = _fit_runner(gt, cfg, tcfg, chunk, tcfg.prune)
     warm = []
-    for end in range(chunk, warmup_iter + 1, chunk):
+    for begin, end in zip([0] + ends[:-1], ends):
         do_grow = tcfg.adaptive_add and end % tcfg.grow_iter == 0 and end < warmup_iter
-        ts, m = train_chunk(ts, gt, cfg, tcfg, chunk, tcfg.prune, do_grow,
-                            do_grow and end == last_grow)
+        ts, m = _macro(runner, ts, gt, cfg, tcfg, (end - begin) // chunk, do_grow,
+                       do_grow and end == last_grow)
         warm.append(m["psnr"])
         if log_every and end % log_every == 0:
             say(f"warmup {end}: psnr {float(m['psnr'][-1]):.3f} best {float(ts.best_psnr):.3f} "
                 f"n {int(ts.gaussians.num_active)}")
+    del runner      # the warmup's graph, before the QAT's capture
 
     state = restore_best(ts)
     model_lr = tcfg.lr * tcfg.lr_gamma ** (warmup_iter // tcfg.lr_step_size)
     mos = make_adam(model_lr, tcfg.lr_step_size, tcfg.lr_gamma).init(state.params)
     bundle = init_quantizers(state, cfg, qcfg, generator=ts.generator)
+    ends = [e for e in range(warmup_iter + chunk, tcfg.iterations + 1, chunk)
+            if e == tcfg.iterations or (log_every and e % log_every == 0)]
+    runner = _qat_runner(gt, cfg, qcfg, model_lr, chunk)
     best, psnrs, losses = None, [], []
-    for end in range(warmup_iter + chunk, tcfg.iterations + 1, chunk):
-        state, mos, bundle, m = quant_train_chunk(state, mos, bundle, gt, cfg, qcfg, model_lr,
-                                                  chunk, best=best)
+    for begin, end in zip([warmup_iter] + ends[:-1], ends):
+        state, mos, bundle, m = _qat_macro(runner, state, mos, bundle, (end - begin) // chunk,
+                                           best)
         best = m["best"]
         psnrs.append(m["psnr"])
         losses.append(m["loss"])

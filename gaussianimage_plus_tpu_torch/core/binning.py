@@ -112,9 +112,20 @@ def tile_bbox_table(xys: torch.Tensor, radii: torch.Tensor, tile_bounds: Tuple[i
     bbox = torch.stack(tile_bbox(xys, radii.to(torch.float32), tile_bounds, BLOCK_H, BLOCK_W),
                        dim=-1).to(torch.int32)
     if valid is not None:
-        empty = torch.tensor([1, 0, 1, 0], dtype=torch.int32, device=bbox.device)
+        # built on the device: a host tensor's copy would sync the step
+        empty = torch.zeros((4,), dtype=torch.int32, device=bbox.device)
+        empty[0::2] = 1
         bbox = torch.where(valid[:, None], bbox, empty)
     return bbox.contiguous()
+
+
+def resolve_bin_method(method: str, n_tiles: int, n: int) -> str:
+    """``'auto'`` -> ``'hier'`` past 32M membership entries (``n_tiles``
+    tiles by ``n`` Gaussians), else ``'top_k'`` (the JAX rule); any other
+    method as it is."""
+    if method != "auto":
+        return method
+    return "hier" if n_tiles * n > 32_000_000 else "top_k"
 
 
 def bin_gaussians(proj: Projected, H: int, W: int, cap: int = 256,
@@ -130,8 +141,7 @@ def bin_gaussians(proj: Projected, H: int, W: int, cap: int = 256,
     ``'auto'``: ``'hier'`` past 32M membership entries, else ``'top_k'``
     (the JAX rule)."""
     tb = tile_bounds_for(H, W, block_h, block_w)
-    if method == "auto":
-        method = "hier" if tb[0] * tb[1] * proj.xys.shape[0] > 32_000_000 else "top_k"
+    method = resolve_bin_method(method, tb[0] * tb[1], proj.xys.shape[0])
     if method == "hier":
         return _bin_hier(proj, tb, cap, block_h, block_w, super_size,
                          super_cap or max(4 * cap, 512))

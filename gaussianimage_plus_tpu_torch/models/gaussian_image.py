@@ -184,6 +184,13 @@ def resolve_backend(cfg: GaussianConfig, device) -> str:
 _KERNEL_BACKENDS = frozenset({"pallas", "list", "list_t", "dense", "sweep"})
 
 
+def render_binner(cfg: GaussianConfig, device) -> Optional[str]:
+    """The binning method ``render`` runs at ``cfg`` on ``device``: None for
+    the cap-free backends, which bin nothing, else ``cfg.bin_method``."""
+    backend = resolve_backend(cfg, device)
+    return None if backend in ("list", "list_t") or backend in _CAP_FREE else cfg.bin_method
+
+
 def _inputs(state, cfg, cov_override, means_override, colors_override):
     proj = project(state.params, state.active, state.bound, cfg,
                    cov_override=cov_override, means_override=means_override)

@@ -10,8 +10,9 @@ train.py:173-175, and resumes at train.py:61-77). A file holds either a
 bit for bit, so a fit resumed from a checkpoint continues exactly as the
 uninterrupted one: the next growth draws from the restored generator.
 
-A save writes a temporary file beside ``path`` and renames it over
-``path``, so a crash during a save leaves the previous checkpoint readable.
+A save writes a temporary file beside ``path``, ``fsync``s it, renames it
+over ``path`` and ``fsync``s the directory, so a crash or a power loss during
+a save leaves the previous checkpoint or the new one readable.
 
 Deviation: the format is the port's own (nested dicts of tensors and
 numbers, read back with ``torch.load(weights_only=True)``). The port cannot
@@ -79,8 +80,18 @@ def save_checkpoint(path, state, extra: Optional[dict] = None) -> None:
     path = os.fspath(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
-    torch.save(payload, tmp)
+    # the file's bytes reach the disk before the rename, and the rename
+    # before the save returns, so a power loss leaves the old or the new file
+    with open(tmp, "wb") as f:
+        torch.save(payload, f)
+        f.flush()
+        os.fsync(f.fileno())
     os.replace(tmp, path)
+    fd = os.open(os.path.dirname(path) or ".", os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
 
 
 def load_checkpoint(path, device=None):

@@ -31,7 +31,9 @@ from gaussianimage_plus_tpu_torch.models import gaussian_image as tgi
 from test_torch_raster import both_projections, scene
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-STATES = sorted(glob.glob(os.path.join(ROOT, "results", "repr_states_*", "*.npz")))
+# the 48 fitted 768x512 states (repr_states_2k holds the 2040x1344 one)
+STATES = sorted(p for d in ("repr_states_cn", "repr_states_plain")
+                for p in glob.glob(os.path.join(ROOT, "results", d, "*.npz")))
 
 
 def _eq(a_torch, a_jax, what):

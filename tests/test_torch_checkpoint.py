@@ -10,6 +10,8 @@
   checkpoint;
 - resume of a completed run returns its best state with an empty history;
 - a ``next_iter`` off the current schedule raises;
+- a save ``fsync``s the temporary file before its rename and the directory
+  after it;
 - a JAX ``TrainState`` saved by the JAX package's ``save_checkpoint`` after
   its last growth, read back by its ``load_checkpoint``, carried across by
   ``interop``, saved by the port and resumed by the port's ``fit_image``:
@@ -18,6 +20,7 @@
 """
 
 import os
+import stat
 
 import numpy as np
 import pytest
@@ -121,6 +124,27 @@ def test_stop_and_resume_is_bit_equal(tmp_path):
     assert torch.equal(resumed.history["psnr"], full.history["psnr"][50:])
     assert_equal_trees(resumed.state, full.state)
     assert resumed.best_psnr == full.best_psnr and resumed.best_iter == full.best_iter
+
+
+def test_save_fsyncs_the_file_and_its_directory(tmp_path, monkeypatch):
+    calls = []
+    real = os.fsync
+
+    def spy(fd):
+        st = os.fstat(fd)
+        calls.append(("dir" if stat.S_ISDIR(st.st_mode) else "file",
+                      os.path.exists(tmp_path / "ck" / "fit_ckpt")))
+        real(fd)
+
+    monkeypatch.setattr(os, "fsync", spy)
+    ts = ttr.init_train_state(tgi.GaussianConfig(H=H, W=W, max_num_points=M), ttr.TrainConfig(),
+                              40, device="cpu")
+    save_checkpoint(tmp_path / "ck" / "fit_ckpt", ts, extra={"next_iter": 0})
+    # the file before the rename (the final path does not exist yet), the
+    # directory after it
+    assert calls == [("file", False), ("dir", True)]
+    assert not (tmp_path / "ck" / "fit_ckpt.tmp").exists()
+    assert load_checkpoint(tmp_path / "ck" / "fit_ckpt", "cpu")[1] == {"next_iter": 0}
 
 
 def test_resume_of_completed_run(tmp_path):

@@ -43,7 +43,9 @@ from gaussianimage_plus_tpu_torch.compress import pipeline as tp
 from gaussianimage_plus_tpu_torch.interop import config_from_numpy, state_from_numpy
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-STATES = sorted(glob.glob(os.path.join(ROOT, "results", "repr_states_*", "*.npz")))
+# the 48 fitted 768x512 states (repr_states_2k holds the 2040x1344 one)
+STATES = sorted(p for d in ("repr_states_cn", "repr_states_plain")
+                for p in glob.glob(os.path.join(ROOT, "results", d, "*.npz")))
 IDS = [f"{os.path.basename(os.path.dirname(p))[12:]}-{os.path.basename(p)[:-4]}" for p in STATES]
 PARAMS = ("xyz", "cov2d", "features")
 

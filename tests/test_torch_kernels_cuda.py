@@ -18,7 +18,16 @@ across the sigma >= 0 or alpha >= 1/255 gate). Kernel C: per payload column, max
 |kernel - plain| <= 1e-4 max |plain| (the gate is bit-equal; the sums over
 pixels and tiles run in another order), and two launches give the same bits.
 Kernel D: the same, per column of its [N, 9] output. Kernel E: ids and counts
-equal the plain version's exactly.
+equal the plain version's exactly. Kernels B and C also run on a 2040x1344
+grid, the card's default 2K training path.
+
+The trainer's CUDA graphs: a graphed ``fit_image`` (each chunk a replay of
+one captured chunk) and a graphed ``train_macro_chunk`` equal the eager
+``train_chunk`` loop bit for bit at 768x512, with equal launch counts;
+``quant_train_macro_chunk`` equals successive ``quant_train_chunk`` calls;
+each route of ``train.trainer.CAPTURE_SET`` runs a chunk, and a QAT chunk,
+under ``torch.cuda.set_sync_debug_mode("error")``; a step that reads a value
+on the host makes the capture raise.
 
 Kernel A reads its tile's rows of the attribute table through the slot
 ids, 128 at a time, and gives a thread 2 pixels of one column; besides the
@@ -47,6 +56,7 @@ two launches against each other.
 
 import dataclasses
 import functools
+import io
 
 import numpy as np
 import pytest
@@ -56,6 +66,7 @@ from gaussianimage_plus_tpu_torch.core.binning import bin_gaussians
 from gaussianimage_plus_tpu_torch.core.gaussian2d import project_gaussians_2d_covariance
 from gaussianimage_plus_tpu_torch.kernels import (binning_tiles, raster_binned, raster_dense,
                                                   raster_list)
+from gaussianimage_plus_tpu_torch.train.trainer import CAPTURE_SET
 
 ATOL, RTOL, MAX_FRAC = 2e-5, 1e-5, 1e-4
 
@@ -104,6 +115,10 @@ SCENES = {
     "kodak-size": dict(n=5000, H=512, W=768, seed=2, cap=256),
 }
 
+# kernels B and C besides: a 2040x1344 grid (128 x 84 tiles), where 'auto'
+# resolves to list_t, so a 2K fit trains through B and C by default
+BC_SCENES = {**SCENES, "2K-size": dict(n=20000, H=1344, W=2040, seed=23, cap=256, cov_max=12.0)}
+
 
 # kernel A besides: the binned fit state's shape (small Gaussians, ~13 live
 # slots a tile, one tile of ~150), one tile at cap 256, and a 2040x1344 grid
@@ -142,9 +157,9 @@ def test_tile_table_forward_matches_plain(card, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kc,lmax", [(128, 16), (64, 16), (64, 1)])
-@pytest.mark.parametrize("case", ["odd-grid", "kodak-size"])
+@pytest.mark.parametrize("case", ["odd-grid", "kodak-size", "2K-size"])
 def test_chunk_list_forward_matches_plain(card, case, kc, lmax):
-    kw = dict(SCENES[case])
+    kw = dict(BC_SCENES[case])
     kw.pop("cap")
     proj, colors, opacity = _scene(**kw)
     H, W = kw["H"], kw["W"]
@@ -182,9 +197,9 @@ def _payload_close(out, ref, what):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kc", [128, 64])
-@pytest.mark.parametrize("case", ["odd-grid", "kodak-size"])
+@pytest.mark.parametrize("case", ["odd-grid", "kodak-size", "2K-size"])
 def test_chunk_backward_matches_plain(card, case, kc):
-    kw = dict(SCENES[case])
+    kw = dict(BC_SCENES[case])
     kw.pop("cap")
     proj, colors, opacity = _scene(**kw)
     H, W = kw["H"], kw["W"]
@@ -660,3 +675,178 @@ def test_train_chunk_render_fn_default_is_bit_equal(card):
     for x, y in zip((*a.gaussians.params, a.gaussians.active, a.best_psnr, *a.opt_state.mu),
                     (*b.gaussians.params, b.gaussians.active, b.best_psnr, *b.opt_state.mu)):
         assert torch.equal(x, y)
+
+
+def _kodak_fit_case(card, **cfg_kw):
+    """A 768x512 target (the render of a seeded random scene), its config at
+    5000 rows and a 2500-point train state."""
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    H, W = 512, 768
+    cfg = gi.GaussianConfig(H=H, W=W, max_num_points=5000, **cfg_kw)
+    proj, colors, opacity = _scene(3000, H, W, seed=40)
+    inputs = raster_list.list_inputs(proj, colors, opacity, H, W, 128)
+    gt = torch.clamp(raster_list.chunk_list_forward(*(a.to(card) for a in inputs), 128, H, W),
+                     0, 1).contiguous()
+    tcfg = tr.TrainConfig(iterations=200, grow_iter=100, prune_iter=50, lr=0.018)
+    return gt, cfg, tcfg, tr.init_train_state(cfg, tcfg, 2500, seed=41, device=card)
+
+
+def _assert_trees_equal(a, b, what):
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    ta, tb = tr._tensors(a), tr._tensors(b)
+    assert len(ta) == len(tb), what
+    for i, (x, y) in enumerate(zip(ta, tb)):
+        assert torch.equal(x, y), f"{what}: tensor {i} {tuple(x.shape)} differs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
+def test_graphed_fit_is_bit_equal(card, backend):
+    """``fit_image`` at 768x512 (2500 -> 5000 Gaussians, a prune every 50,
+    the growth at 100 with the final fill, 200 steps, a log point at 150)
+    through ``'auto'`` (list_t: B + C) and ``'pallas'`` + kernel E (A + D +
+    E): its chunks replay one captured chunk, and its best state, history
+    and launch counts equal the eager ``train_chunk`` loop's."""
+    from gaussianimage_plus_tpu_torch.kernels import wrappers
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    kw = {} if backend == "auto" else dict(raster_backend="pallas", bin_method="pallas")
+    gt, cfg, tcfg, ts0 = _kodak_fit_case(card, **kw)
+    assert tr.captures(cfg, card)
+    draws = torch.rand((5000, 3), generator=torch.Generator().manual_seed(42)).to(card)
+    for k in wrappers():
+        k.launches = 0
+    res = tr.fit_image(gt, cfg, tcfg, 2500, gaussians=ts0.gaussians, grow_draws=[draws],
+                       log_every=150, logger=io.StringIO())
+    graphed = [k.launches for k in wrappers()]
+    for k in wrappers():
+        k.launches = 0
+    ts, hist = ts0, {"psnr": [], "n_pruned": [], "n_added": [], "num_active": []}
+    for end in range(50, 201, 50):
+        grow_now = end == 100
+        ts, m = tr.train_chunk(ts, gt, cfg, tcfg, 50, True, grow_now, True,
+                               draws if grow_now else None)
+        hist["psnr"].append(m["psnr"])
+        hist["n_pruned"].append(m["n_pruned"][None])
+        hist["n_added"].append(m["n_added"][None])
+        hist["num_active"].append(ts.gaussians.num_active[None])
+    assert [k.launches for k in wrappers()] == graphed and graphed[2 if backend == "auto" else 3] == 200
+    for key, parts in hist.items():
+        assert torch.equal(res.history[key], torch.cat(parts)), key
+    _assert_trees_equal(res.state, tr.restore_best(ts), "best state")
+    assert res.best_iter == int(ts.best_iter) and int(res.history["n_added"].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_graphed_macro_chunk_is_bit_equal(card):
+    """A bare ``train_macro_chunk`` (3 chunks of 50, prune, the growth at the
+    end) equals three ``train_chunk`` calls with the growth on the last:
+    the whole train state, the metrics, and each kernel's launches beyond
+    its warm-up chunk on a clone."""
+    from gaussianimage_plus_tpu_torch.kernels import wrappers
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    gt, cfg, tcfg, ts0 = _kodak_fit_case(card)
+    draws = torch.rand((5000, 3), generator=torch.Generator().manual_seed(43)).to(card)
+    for k in wrappers():
+        k.launches = 0
+    a, ma = tr.train_macro_chunk(ts0, gt, cfg, tcfg, 3, 50, True, True, False, draws)
+    graphed = [k.launches for k in wrappers()]
+    for k in wrappers():
+        k.launches = 0
+    b, losses, psnrs = ts0, [], []
+    for i in range(3):
+        b, mb = tr.train_chunk(b, gt, cfg, tcfg, 50, True, i == 2, False, draws)
+        losses.append(mb["loss"])
+        psnrs.append(mb["psnr"])
+    assert graphed == [4 * n // 3 for n in (k.launches for k in wrappers())]
+    _assert_trees_equal(a, b, "train state")
+    assert torch.equal(ma["loss"], torch.cat(losses)) and torch.equal(ma["psnr"], torch.cat(psnrs))
+    assert torch.equal(ma["n_added"], mb["n_added"]) and int(ma["n_added"]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("color_quant", ["lsq", "vq"])
+def test_graphed_quant_macro_chunk_is_bit_equal(card, color_quant):
+    """``quant_train_macro_chunk`` (3 chunks of 20 QAT steps through
+    ``'auto'``) equals three ``quant_train_chunk`` calls carrying ``best``."""
+    from gaussianimage_plus_tpu_torch.compress import pipeline as pl
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    gt, cfg, tcfg, ts0 = _kodak_fit_case(card)
+    ts0, _ = tr.train_chunk(ts0, gt, cfg, tcfg, 20, True, False)
+    state = tr.restore_best(ts0)
+    qcfg = pl.QuantConfig(color_quant=color_quant)
+    bundle = pl.init_quantizers(state, cfg, qcfg)
+    mos = tr.make_optimizer(tcfg).init(state.params)
+    a = pl.quant_train_macro_chunk(state, mos, bundle, gt, cfg, qcfg, 0.01, 3, 20)
+    b, best, psnrs = (state, mos, bundle), None, []
+    for _ in range(3):
+        *b, m = pl.quant_train_chunk(*b, gt, cfg, qcfg, 0.01, 20, best=best)
+        best = m["best"]
+        psnrs.append(m["psnr"])
+    _assert_trees_equal(a[:3], tuple(b), "QAT state")
+    _assert_trees_equal(a[3]["best"], best, "best carry")
+    assert torch.equal(a[3]["psnr"], torch.cat(psnrs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", sorted(CAPTURE_SET))
+def test_capture_set_routes_never_sync(card, route):
+    """Each route of ``CAPTURE_SET`` runs a train chunk (re-sort, steps,
+    prune) and a QAT chunk with the host never synchronised: under
+    ``torch.cuda.set_sync_debug_mode("error")`` a sync raises."""
+    from gaussianimage_plus_tpu_torch.compress import pipeline as pl
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    backend, binner = route
+    kw = dict(raster_backend=backend, **({} if binner is None else dict(bin_method=binner)))
+    gt, cfg, tcfg, ts = _kodak_fit_case(card, **kw)
+    assert tr.captures(cfg, card)
+    qcfg = pl.QuantConfig(color_quant="vq")
+    ts, _ = tr.train_chunk(ts, gt, cfg, tcfg, 2, True, False)       # builds the kernels
+    bundle = pl.init_quantizers(tr.restore_best(ts), cfg, qcfg)
+    mos = tr.make_optimizer(tcfg).init(ts.gaussians.params)
+    pl.quant_train_chunk(ts.gaussians, mos, bundle, gt, cfg, qcfg, 0.01, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr.train_chunk(ts, gt, cfg, tcfg, 3, True, False)
+        for q in (bundle, bundle._replace(color_vq=None)):
+            pl.quant_train_chunk(ts.gaussians, mos, q, gt, cfg,
+                                 dataclasses.replace(qcfg, color_quant="vq" if q.color_vq else "lsq"),
+                                 0.01, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+
+@pytest.mark.cuda
+def test_capture_of_a_host_sync_raises(card):
+    """A ``render_fn`` that reads a value on the host (``.item()``) makes
+    the capture of its chunk raise; the launch counts are put back and the
+    card runs on."""
+    from gaussianimage_plus_tpu_torch.kernels import wrappers
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    gt, cfg, tcfg, ts = _kodak_fit_case(card)
+    ts, _ = tr.train_chunk(ts, gt, cfg, tcfg, 2, True, False)
+
+    def syncing(state, cfg_):
+        img = gi.render(state, cfg_)
+        img.sum().item()
+        return img
+
+    assert not tr.captures(cfg, card, syncing)
+    fn = lambda ts_: (tr.train_chunk(ts_, gt, cfg, tcfg, 2, True, False, render_fn=syncing)[0], ())
+    before = [k.launches for k in wrappers()]
+    with pytest.raises(RuntimeError):
+        tr.ChunkGraph(fn, ts)
+    assert [k.launches for k in wrappers()] == before
+    after, m = tr.train_chunk(ts, gt, cfg, tcfg, 2, True, False)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(m["psnr"]).all())

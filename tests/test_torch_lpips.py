@@ -24,11 +24,11 @@ from gaussianimage_plus_tpu.train import trainer as jtr
 
 from gaussianimage_plus_tpu_torch.interop import state_from_numpy
 from gaussianimage_plus_tpu_torch.models import gaussian_image as tgi
-from gaussianimage_plus_tpu_torch.train import lpips as tlp
 from gaussianimage_plus_tpu_torch.train import trainer as ttr
 
-# the JAX package's train/__init__ exports the function under the module's name
+# both packages' train/__init__ export the function under the module's name
 jlp = importlib.import_module("gaussianimage_plus_tpu.train.lpips")
+tlp = importlib.import_module("gaussianimage_plus_tpu_torch.train.lpips")
 FIXTURE = pathlib.Path(__file__).parent / "fixtures" / "lpips_fixture.npz"
 
 
