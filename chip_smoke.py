@@ -49,11 +49,11 @@ five hand-written CUDA kernels against their plain PyTorch versions. Phases:
    (after phase 4) the fit and 2K states: ids, mask and count equal exactly,
    and equal to ``'hier'`` wherever its ``super_overflow`` is 0;
 4. main paths, each with every launch count set to 0 just before it and read
-   just after. ``fit_image`` and ``fit_image_quantized`` run their chunks as
-   replays of one captured CUDA graph on the routes of
-   ``train.trainer.CAPTURE_SET`` (``'auto'`` at 768x512, ``'pallas'`` + E),
-   and eagerly elsewhere (the odd grid, ``'hier'``); the launch counts
-   equal an eager run's. Decode: each of the 57 committed streams
+   just after. ``fit_image``, ``fit_image_quantized`` and ``fit_batch`` run
+   their chunks as replays of one captured CUDA graph wherever ``render``
+   runs through a kernel (``train.trainer.captures``: every path of this
+   phase, the odd grid's ``'pallas'`` + ``'top_k'`` and the 2K ``'hier'``
+   fit among them); the launch counts equal an eager run's. Decode: each of the 57 committed streams
    (``results/bitstreams*/``: 48 lsq Kodak streams of rounds 3 and 4, 6 with
    VQ colour, 3 of format v1) through ``decode_bitstream`` (binned),
    ``prepare_decode`` + ``decode_frame`` and
@@ -78,11 +78,12 @@ five hand-written CUDA kernels against their plain PyTorch versions. Phases:
    PSNR 5 dB above the first step's). (b) The same 100 steps through
    ``'pallas'`` + kernel E: within 0.05 dB of ``'xla'`` at every step.
    (c) Odd grid: ``fit_image`` of the top-left 496x752 crop (47x31 = 1457
-   tiles), ``'auto'`` asserted to resolve to ``'pallas'``, 2500 Gaussians of at
-   most 5000, 200 steps, a prune every 100 (kernel D once a step; best PSNR 3
-   dB above the first step's). (d) 2K: ``fit_image`` at 1344x2040 with 20,000
-   Gaussians, 100 steps through ``'pallas'``, ``bin_method='auto'`` asserted
-   to pick ``'hier'``; the target is ``bench.py``'s seeded block image, made
+   tiles), ``'auto'`` asserted to resolve to ``'pallas'`` (binning with
+   ``'top_k'``), 2500 Gaussians of at most 5000, 200 steps, a prune every 100
+   (kernel D once a step; best PSNR 3 dB above the first step's). (d) 2K:
+   ``fit_image`` at 1344x2040 with 20,000 Gaussians, 100 steps through
+   ``'pallas'``, a prune every 50, ``bin_method='auto'`` asserted to pick
+   ``'hier'``; the target is ``bench.py``'s seeded block image, made
    with numpy (finite losses; ``super_overflow`` reported). (e) Every fitted
    state through ``render_fast`` with the dense, sweep and range kernels
    against ``'list_t'`` (the forward tolerance), and one state's gradients
@@ -128,10 +129,11 @@ five hand-written CUDA kernels against their plain PyTorch versions. Phases:
    process group of one: (p1) ``parallel.fit_batch`` of the renders of the
    first four landscape committed states (``repr_states_plain/kodim01``,
    ``02``, ``03``, ``05``), seeds 3047-3050,
-   ``'auto'`` (kernels B and C), 500 steps with a prune every 50 and the
-   growth at 250: each image's final parameters and active set
-   ``torch.equal`` to the same chunk schedule run on it alone, each best PSNR
-   5 dB above its first step's; (p2) 100 steps through
+   ``'auto'`` (kernels B and C), 300 steps with a prune every 50 and the
+   growth at 150, each chunk of the block one graph replay: each image's
+   final train state, per-chunk metrics and the launch counts
+   ``torch.equal`` to the same chunk schedule run on it alone, eagerly, each
+   best PSNR 5 dB above its first step's; (p2) 100 steps through
    ``make_tile_sharded_render`` and through ``'xla'`` from one state, within
    0.05 dB at every step, and ``fit_image_tile_sharded`` (200 steps, a prune
    every 100, the growth at 100) rising 5 dB, with its step time and peak
@@ -149,14 +151,21 @@ five hand-written CUDA kernels against their plain PyTorch versions. Phases:
    protocol): the Kodak ``'auto'`` fit run again graphed, ``torch.equal``
    (best state, history) to phase 4's and to the same schedule run eagerly
    through ``train_chunk``, launches equal, with both wall times and peak
-   memories; phase (a)'s binned fit and phase (f)'s coding path
+   memories; the graphed fits of phases (a) (binned), (c) (the odd grid) and
+   (d) (2K ``'pallas'`` + ``'hier'``) and phase (f)'s coding path
    ``torch.equal`` to their schedules run eagerly (``train_chunk``,
-   ``quant_train_chunk``); a 2040x1344 ``'auto'`` fit (B + C, 10,000 ->
-   20,000 rows, 100 steps, a prune every 50) on the render of the 2K state,
-   graphed and eager ``torch.equal``, rising 1 dB; then, for the Kodak
-   ``'auto'``, ``'pallas'`` + E, 2K and QAT steps, the step time of 5
-   replayed chunks (CUDA events), the capture's time, the replays' device
-   busy (profiler) beside the eager median of 50 steps at the same state.
+   ``quant_train_chunk``), launches equal; a ``'dense'`` and a ``'sweep'``
+   macro chunk (3 x 20 steps) at the Kodak fit state and 3 x 20 QAT steps on
+   the odd grid, each ``torch.equal`` to its chunks run eagerly; phase (p1)'s
+   ``fit_batch`` against each image alone (held there); a 2040x1344
+   ``'auto'`` fit (B + C, 10,000 -> 20,000 rows, 100 steps, a prune every
+   50) on the render of the 2K state, graphed and eager ``torch.equal``,
+   rising 1 dB; then, for the Kodak ``'auto'``, ``'pallas'`` + E,
+   ``'dense'`` and ``'sweep'`` steps, the odd grid's, the 2K ``'hier'`` and
+   ``'auto'`` steps, QAT at 768x512 and on the odd grid, and ``fit_batch``'s
+   block of four, the step time of 5 replayed chunks (CUDA events), the
+   capture's time, the replays' device busy (profiler) beside the eager
+   median of 50 steps at the same state.
    Its launches are reported apart (``report["phases"]["fused dispatch"]``);
 5. timing with CUDA events: per frame (median of 50 frames) of the full
    decodes (parse included), the bin-once ``decode_frame`` and a fitted-state
@@ -259,11 +268,11 @@ ENTRY = dict(iterations=1000, prune_iter=100, grow_iter=500, log_every=500, stop
              adan_steps=1000, adan_rise_db=3.0, rs_iterations=200, warmup=100, qat=200)
 ENTRY_POINTS, ENTRY_MAX, ENTRY_DB = 2500, 5000, 20.0
 # phase 4 (p), parallel/ in a NCCL group of one: fit_batch's images and schedule
-# (the growth at 250 has to end a chunk, so a prune every 50), the sharded
+# (the growth at 150 has to end a chunk, so a prune every 50), the sharded
 # step's agreement steps, the sharded fit's schedule (growth at 100); the rise
 # each must show; the 2K render's band budget (a full-width band of 4 tile rows
 # of the 2K grid can hold more candidates than the default 1024)
-PAR = dict(images=4, max_points=5000, iterations=500, prune_iter=50, grow_iter=250, rise_db=5.0,
+PAR = dict(images=4, max_points=5000, iterations=300, prune_iter=50, grow_iter=150, rise_db=5.0,
            agree_steps=100, fit=dict(iterations=200, prune_iter=100, grow_iter=100),
            fit_rise_db=5.0, super_cap_2k=4096)
 # phase 4 (l), the legacy 3DGS model at 768x512: points, SH degree, the steps
@@ -272,10 +281,11 @@ LEGACY = dict(points=5000, sh_degree=3, agree_steps=20, steps=300)
 COUNT_FRAC = 1e-4
 # phase 4 (h), the fused dispatch: the converged 2K state whose render is the
 # 2K fit's target, that fit's points (scripts/fit_2k.py's), steps and rise;
-# the Kodak fit's rise (phase 4's); the chunk replays timed a route
+# the Kodak fit's rise (phase 4's); the chunk replays timed a route; the
+# macro chunks of 'dense', 'sweep' and the odd grid's QAT held against eager
 STATE_2K = ROOT / "results" / "repr_states_2k" / "mosaic2k.npz"
 FUSED = dict(k2_points=10_000, k2_fit=dict(iterations=100, prune_iter=50), k2_rise_db=1.0,
-             rise_db=5.0, replays=5)
+             rise_db=5.0, replays=5, chunks=3, chunk=20)
 
 report: dict = {"phases": {}}
 
@@ -778,7 +788,8 @@ def parallel_and_legacy(dev, fit_target: torch.Tensor, fit_state, state2k, cfg2k
                         target2k: torch.Tensor, kernels: dict) -> tuple:
     """Phase 4 (p) and (l): ``parallel/`` in a process group of one (the
     caller's NCCL group), the legacy 3DGS model and ``pixel_count_map``.
-    Returns the two phases' reports and a one-line summary. Their launches
+    Returns the two phases' reports, a one-line summary and (p1)'s batch
+    (targets, config, schedule and final states) for phase (h). Their launches
     (kernels B and C in ``fit_batch``) repeat the fit path's, so they are
     reported here apart, as phase (g)'s are."""
     from gaussianimage_plus_tpu_torch.core.binning import bin_gaussian_rows_hier
@@ -792,10 +803,6 @@ def parallel_and_legacy(dev, fit_target: torch.Tensor, fit_state, state2k, cfg2k
 
     book = LaunchBook(kernels)
     P = PAR
-
-    def same(a, b) -> bool:
-        return (all(torch.equal(x, y) for x, y in zip(a.gaussians.params, b.gaussians.params))
-                and torch.equal(a.gaussians.active, b.gaussians.active))
 
     def peak_gb(fn):
         torch.cuda.reset_peak_memory_stats()
@@ -824,14 +831,15 @@ def parallel_and_legacy(dev, fit_target: torch.Tensor, fit_state, state2k, cfg2k
         f"{', '.join(names)}, a NCCL group of one, seeds {FIT_SEED}-"
         f"{FIT_SEED + len(names) - 1}, {FIT_POINTS} Gaussians up to {cfg.max_num_points}, "
         f"{P['iterations']} steps, a prune every {P['prune_iter']}, growth at {P['grow_iter']}")
-    first = {}
+    hist_b = []     # per chunk: loss and psnr [B, chunk], n_pruned and n_added [B]
 
     def progress(it, m):
-        first.setdefault("psnr", m["psnr"][:, 0].cpu().numpy())
+        hist_b.append(m)
 
     tss = book.timed("fit_batch", lambda: psh.fit_batch(
         targets, cfg, tcfg, FIT_POINTS, mesh=psh.make_mesh(), seed=FIT_SEED, progress=progress,
         device=dev))
+    hist_a = [[] for _ in targets]
 
     def each_alone():
         out = []
@@ -839,14 +847,29 @@ def parallel_and_legacy(dev, fit_target: torch.Tensor, fit_state, state2k, cfg2k
             ts = tr.init_train_state(cfg, tcfg, FIT_POINTS, seed=FIT_SEED + i, device=dev)
             for end in range(tcfg.prune_iter, tcfg.iterations + 1, tcfg.prune_iter):
                 grow = end % tcfg.grow_iter == 0 and end < tcfg.iterations
-                ts, _ = tr.train_chunk(ts, target, cfg, tcfg, tcfg.prune_iter, True, grow,
+                ts, m = tr.train_chunk(ts, target, cfg, tcfg, tcfg.prune_iter, True, grow,
                                        end == tcfg.iterations - tcfg.grow_iter)
+                hist_a[i].append(m)
             out.append(ts)
         return out
 
     alone = book.timed("each image alone", each_alone)
+    # fit_batch replays one graph a chunk for the block ('auto' -> list_t
+    # captures): its states, per-chunk metrics and launches equal the eager
+    # chunks of each image alone
+    for i in range(len(targets)):
+        check(all(torch.equal(hist_b[c][k][i], m[k]) for c, m in enumerate(hist_a[i])
+                  for k in ("loss", "psnr", "n_pruned", "n_added")),
+              f"fit_batch: image {i}'s history differs from its schedule run alone")
+    check(all(len(tr._tensors(a)) == len(tr._tensors(b)) and
+              all(torch.equal(x, y) for x, y in zip(tr._tensors(a), tr._tensors(b)))
+              for a, b in zip(tss, alone)),
+          "fit_batch: a train state is not torch.equal to its schedule run alone")
+    check(book.info["fit_batch"]["launches"] == book.info["each image alone"]["launches"],
+          f"fit_batch: launches {book.launches('fit_batch')}, alone "
+          f"{book.launches('each image alone')}")
     best = np.array([float(ts.best_psnr) for ts in tss])
-    rise = best - first["psnr"]
+    rise = best - hist_b[0]["psnr"][:, 0].cpu().numpy()
     n_b, n_a = book.info["fit_batch"], book.info["each image alone"]
     steps = len(names) * P["iterations"]
     log(f"  fit_batch: {n_b['seconds']:.2f} s ({n_b['seconds'] / len(names):.2f} s an image), "
@@ -855,12 +878,13 @@ def parallel_and_legacy(dev, fit_target: torch.Tensor, fit_state, state2k, cfg2k
         + " / ".join(f"{r:.2f}" for r in rise) + " dB; active "
         + " / ".join(str(int(ts.gaussians.num_active)) for ts in tss)
         + f"; launches {book.launches('fit_batch')} (alone: {book.launches('each image alone')})")
-    check(len(tss) == len(names) and all(same(a, b) for a, b in zip(tss, alone)),
-          "fit_batch: an image's state is not torch.equal to its schedule run alone")
+    check(len(tss) == len(names), f"fit_batch: {len(tss)} states for {len(names)} images")
     check(bool((rise >= P["rise_db"]).all()), f"fit_batch: best PSNR rose {rise} dB, not "
           f"{P['rise_db']}")
     check(n_b["launches"]["c"] == steps and n_b["launches"]["b"] >= steps,
           f"fit_batch: launches {n_b['launches']} in {steps} steps")
+    batch = dict(targets=targets, cfg=cfg, tcfg=tcfg, states=tss,
+                 graphed=tr.captures(cfg, dev))
     info_p = dict(fit_batch=dict(book.info["fit_batch"], best_psnr=best.tolist(),
                                  rise_db=rise.tolist(), equal_alone=True,
                                  alone_seconds=n_a["seconds"], alone_launches=n_a["launches"],
@@ -1020,7 +1044,7 @@ def parallel_and_legacy(dev, fit_target: torch.Tensor, fit_state, state2k, cfg2k
             "{:.3g} dB, step {:.4f} ms (busy {:.1%}); pixel counts differ {:.4%}").format(
         n_b["seconds"] / len(names), n_a["seconds"] / len(names), agree_db, fit_rise, step_ms,
         step_gb, img_d, ovf, gb_2k, db3, ms3, busy3 / ms3, differ)
-    return info_p, info_l, line
+    return info_p, info_l, line, batch
 
 
 def eager_fit(target: torch.Tensor, cfg, fit: dict, points: int, init_state=None) -> tuple:
@@ -1049,26 +1073,31 @@ def eager_fit(target: torch.Tensor, cfg, fit: dict, points: int, init_state=None
             float(ts.best_psnr), int(ts.best_iter))
 
 
-def fused_dispatch(dev, kernels: dict, fit_target: torch.Tensor, cfg_fit, res, cfg_bin, res_bin,
-                   cfg_q, tcfg_q, qcfg, res_q, qat_s: float, names: dict) -> tuple:
-    """Phase 4 (h): the fused dispatch. ``fit_image`` and
-    ``fit_image_quantized`` run their chunks as replays of one captured CUDA
-    graph (``train.trainer.ChunkGraph``) on the routes of ``CAPTURE_SET``;
-    here each graphed run is held ``torch.equal`` to the same schedule run
-    eagerly through ``train_chunk`` (and ``quant_train_chunk``), with equal
-    launch counts: the Kodak ``'auto'`` fit (B + C), run again graphed with
-    its wall time and peak memory; the binned fit (``'pallas'`` + E: A + D +
-    E) of phase (a); the coding path of phase (f); and a 2040x1344 ``'auto'``
-    fit (B + C), 10,000 -> 20,000 rows, on the render of the converged 2K
-    state ``results/repr_states_2k/mosaic2k.npz``, which must rise. Then per
-    route the step time of replays (CUDA events around ``FUSED['replays']``
-    chunk replays, the capture timed apart) beside the eager median of 50
-    steps at the same state, and the replays' device busy from the profiler.
-    Returns the phase's report and a one-line summary; its launches repeat
-    phase 4's paths and are reported apart."""
+def fused_dispatch(dev, kernels: dict, fit_target: torch.Tensor, cfg_fit, res, fits: dict,
+                   cfg_q, tcfg_q, qcfg, res_q, qat_s: float, batch: dict, names: dict) -> tuple:
+    """Phase 4 (h): the fused dispatch. ``fit_image``, ``fit_image_quantized``
+    and ``fit_batch`` run their chunks as replays of one captured CUDA graph
+    (``train.trainer.ChunkGraph``) wherever ``render`` runs through a kernel
+    (``train.trainer.captures``); here each graphed run is held
+    ``torch.equal`` to the same schedule run eagerly through ``train_chunk``
+    (and ``quant_train_chunk``), with equal launch counts: the Kodak
+    ``'auto'`` fit (B + C), run again graphed with its wall time and peak
+    memory; ``fits``, phase 4's graphed fits (the binned fit of (a), the odd
+    grid's ``'auto'`` of (c), the 2K ``'pallas'`` + ``'hier'`` fit of (d));
+    the coding path of (f); a ``'dense'`` and a ``'sweep'`` macro chunk at the
+    Kodak fit state; QAT on the odd grid; ``fit_batch`` of (p1) (``batch``),
+    whose states, history and launches (p1) holds against each image alone;
+    and a 2040x1344 ``'auto'`` fit (B + C), 10,000 -> 20,000 rows, on the
+    render of the converged 2K state ``results/repr_states_2k/mosaic2k.npz``,
+    which must rise. Then per route the step time of replays (CUDA events
+    around ``FUSED['replays']`` chunk replays, the capture timed apart)
+    beside the eager median of 50 steps at the same state, and the replays'
+    device busy from the profiler. Returns the phase's report and a one-line
+    summary; its launches repeat phase 4's paths and are reported apart."""
     from gaussianimage_plus_tpu_torch.compress import pipeline as pl
     from gaussianimage_plus_tpu_torch.interop import config_from_numpy, state_from_numpy
     from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.parallel import sharded as psh
     from gaussianimage_plus_tpu_torch.train import trainer as tr
 
     info: dict = {}
@@ -1095,12 +1124,13 @@ def fused_dispatch(dev, kernels: dict, fit_target: torch.Tensor, cfg_fit, res, c
             check(torch.equal(x, y), f"(h) {tag}: graphed and eager differ in tensor {i} "
                   f"{tuple(x.shape)}")
 
-    def fit_pair(tag, target, cfg, fit, points, rise_db):
-        """The graphed ``fit_image`` against the eager chunk loop."""
-        check(tr.captures(cfg, dev), f"(h) {tag}: not a route of CAPTURE_SET")
-        tc = tr.TrainConfig(**fit)
-        g, g_s, g_n, g_mem = run(lambda: tr.fit_image(target, cfg, tc, points, seed=FIT_SEED,
-                                                      device=dev))
+    def launch_note(n: dict) -> str:
+        return ", ".join(f"{k.upper()} {v}" for k, v in n.items() if v)
+
+    def against_eager(tag, target, cfg, fit, points, g, g_n, g_s):
+        """A graphed fit against its schedule run eagerly: (eager seconds,
+        eager peak memory)."""
+        check(tr.captures(cfg, dev), f"(h) {tag}: not a capturing route")
         (e_state, e_hist, e_best, e_iter), e_s, e_n, e_mem = run(
             lambda: eager_fit(target, cfg, fit, points))
         same(f"{tag} best state", g.state, e_state)
@@ -1108,23 +1138,86 @@ def fused_dispatch(dev, kernels: dict, fit_target: torch.Tensor, cfg_fit, res, c
             same(f"{tag} history {k}", g.history[k], v)
         check(g.best_psnr == e_best and g.best_iter == e_iter, f"(h) {tag}: best differs")
         check(g_n == e_n, f"(h) {tag}: launches graphed {g_n}, eager {e_n}")
+        info[tag] = dict(graphed_s=g_s, eager_s=e_s, launches=e_n, steps=fit["iterations"])
+        return e_s, e_mem
+
+    def fit_pair(tag, target, cfg, fit, points, rise_db):
+        """``fit_image`` run graphed here against the eager chunk loop."""
+        tc = tr.TrainConfig(**fit)
+        g, g_s, g_n, g_mem = run(lambda: tr.fit_image(target, cfg, tc, points, seed=FIT_SEED,
+                                                      device=dev))
+        e_s, e_mem = against_eager(tag, target, cfg, fit, points, g, g_n, g_s)
         psnr = g.history["psnr"]
         check(g.best_psnr >= float(psnr[0]) + rise_db, f"(h) {tag}: best {g.best_psnr:.4f} dB "
               f"not {rise_db} dB above the first step's {float(psnr[0]):.4f}")
-        info[tag] = dict(graphed_s=g_s, eager_s=e_s, launches=g_n, peak_gb_graphed=g_mem / 1e9,
-                         peak_gb_eager=e_mem / 1e9, best_psnr=g.best_psnr,
-                         first_psnr=float(psnr[0]), steps=fit["iterations"])
+        info[tag].update(peak_gb_graphed=g_mem / 1e9, peak_gb_eager=e_mem / 1e9,
+                         best_psnr=g.best_psnr, first_psnr=float(psnr[0]))
         log(f"  (h) {tag}: {fit['iterations']} steps graphed {g_s:.3f} s, eager {e_s:.3f} s; "
-            f"torch.equal (best state, history), launches equal ("
-            + ", ".join(f"{k.upper()} {n}" for k, n in g_n.items() if n)
-            + f"); PSNR {float(psnr[0]):.4f} -> best {g.best_psnr:.4f} dB; peak memory graphed "
+            f"torch.equal (best state, history), launches equal ({launch_note(g_n)}); PSNR "
+            f"{float(psnr[0]):.4f} -> best {g.best_psnr:.4f} dB; peak memory graphed "
             f"{g_mem / 1e9:.3f} GB, eager {e_mem / 1e9:.3f} GB")
         return g
 
-    def step_times(tag, runner, carry, chunk, eager_step, kernel_names):
+    def chunk_pair(tag, state, cfg, target, n_chunks, chunk):
+        """``train_macro_chunk`` (replays, warmed up on a clone) against
+        ``n_chunks`` eager ``train_chunk`` calls, each with its prune."""
+        check(tr.captures(cfg, dev), f"(h) {tag}: not a capturing route")
+        tc = tr.TrainConfig(prune_iter=chunk)
+        ts0 = tr.init_train_state(cfg, tc, 0, gaussians=state)
+        (a, ma), g_s, g_n, _ = run(lambda: tr.train_macro_chunk(ts0, target, cfg, tc, n_chunks,
+                                                                chunk, True, False))
+
+        def eager():
+            b, parts = ts0, []
+            for _ in range(n_chunks):
+                b, mb = tr.train_chunk(b, target, cfg, tc, chunk, True, False)
+                parts.append((mb["loss"], mb["psnr"]))
+            return b, [torch.cat(p_) for p_ in zip(*parts)]
+
+        (b, (loss, psnr)), e_s, e_n, _ = run(eager)
+        same(f"{tag} train state", a, b)
+        same(f"{tag} loss and PSNR", (ma["loss"], ma["psnr"]), (loss, psnr))
+        check(all(g_n[k] * n_chunks == e_n[k] * (n_chunks + 1) for k in e_n),
+              f"(h) {tag}: launches graphed {g_n} (a warm-up chunk on a clone), eager {e_n}")
+        info[tag] = dict(graphed_s=g_s, eager_s=e_s, launches=e_n, steps=n_chunks * chunk)
+        log(f"  (h) {tag}: {n_chunks} x {chunk} steps graphed {g_s:.3f} s (and a warm-up "
+            f"chunk), eager {e_s:.3f} s; torch.equal (train state, loss, PSNR), launches "
+            f"{launch_note(g_n)} against {launch_note(e_n)}")
+
+    def qat_pair(tag, state, cfg, target, n_chunks, chunk, model_lr):
+        """``quant_train_macro_chunk`` against ``n_chunks`` eager
+        ``quant_train_chunk`` calls carrying ``best``."""
+        check(tr.captures(cfg, dev), f"(h) {tag}: not a capturing route")
+        bundle = pl.init_quantizers(state, cfg, qcfg)
+        mos = tr.make_optimizer(tcfg_q).init(state.params)
+        a, g_s, g_n, _ = run(lambda: pl.quant_train_macro_chunk(
+            state, mos, bundle, target, cfg, qcfg, model_lr, n_chunks, chunk))
+
+        def eager():
+            b, best, psnrs = (state, mos, bundle), None, []
+            for _ in range(n_chunks):
+                *b, m = pl.quant_train_chunk(*b, target, cfg, qcfg, model_lr, chunk, best=best)
+                best = m["best"]
+                psnrs.append(m["psnr"])
+            return tuple(b), best, torch.cat(psnrs)
+
+        (b, best, psnr), e_s, e_n, _ = run(eager)
+        same(f"{tag} QAT state", a[:3], b)
+        same(f"{tag} best", a[3]["best"], best)
+        same(f"{tag} PSNR", a[3]["psnr"], psnr)
+        check(all(g_n[k] * n_chunks == e_n[k] * (n_chunks + 1) for k in e_n),
+              f"(h) {tag}: launches graphed {g_n} (a warm-up chunk on a clone), eager {e_n}")
+        info[tag] = dict(graphed_s=g_s, eager_s=e_s, launches=e_n, steps=n_chunks * chunk,
+                         best_psnr=float(best[0]))
+        log(f"  (h) {tag}: {n_chunks} x {chunk} QAT steps graphed {g_s:.3f} s (and a warm-up "
+            f"chunk), eager {e_s:.3f} s; torch.equal (state, bundle, best, PSNR), launches "
+            f"{launch_note(g_n)} against {launch_note(e_n)}; best {float(best[0]):.4f} dB")
+        return bundle, mos
+
+    def step_times(tag, runner, carry, chunk, eager_step, kernel_names, per=1):
         """Per-step ms of ``FUSED['replays']`` chunk replays (CUDA events),
         the capture's ms, the replays' device busy a step, beside the eager
-        median of 50 steps."""
+        median of 50 steps; ``per`` images a step (fit_batch's block)."""
         runner.run(carry, 1)                        # the eager warm-up chunk
         sync()
         t0 = time.perf_counter()
@@ -1146,18 +1239,19 @@ def fused_dispatch(dev, kernels: dict, fit_target: torch.Tensor, cfg_fit, res, c
         eager = median_ms(eager_step)
         info.setdefault("steps", {})[tag] = dict(
             graphed_ms=graphed, eager_ms=eager, busy_ms=busy, capture_ms=capture_ms,
-            chunk=chunk, replays=n, top=[(k, ms / chunk) for k, ms in rows[:6]],
+            chunk=chunk, replays=n, images=per, top=[(k, ms / chunk) for k, ms in rows[:6]],
             not_traced=missing)
         log(f"  (h) {tag} step: graphed {graphed:.4f} ms ({n} replays of {chunk} steps), eager "
             f"{eager:.4f} ms (median of {FRAMES}); device busy under replay {busy:.4f} ms a step "
             f"({busy / graphed:.1%} of the graphed step); capture {capture_ms:.1f} ms"
+            + (f"; {graphed / per:.4f} ms graphed an image-step" if per > 1 else "")
             + (f"; not traced: {', '.join(missing)}" if missing else ""))
         return graphed, eager, busy
 
     def train_steps(tag, state, cfg, target, chunk, kernel_names):
         tc = tr.TrainConfig(prune_iter=chunk)
         ts = tr.init_train_state(cfg, tc, 0, gaussians=state)
-        if gi.resolve_backend(cfg, dev) in ("list", "list_t"):
+        if gi.resolve_backend(cfg, dev) in ("list", "list_t", "sweep"):
             ts = tr._morton_resort(ts, cfg)
         tx = tr.make_optimizer(tc)
         box = [ts]
@@ -1169,20 +1263,29 @@ def fused_dispatch(dev, kernels: dict, fit_target: torch.Tensor, cfg_fit, res, c
         img = torch.zeros((cfg.H, cfg.W, 3), device=dev)
         return step_times(tag, runner, (ts, img), chunk, one_step, kernel_names)
 
+    def qat_steps(tag, state, bundle, mos, cfg, target, chunk, model_lr, kernel_names):
+        box = [(state, mos, bundle, None)]
+
+        def qat_step():
+            s_, m_, b_, best_ = box[0]
+            s_, m_, b_, mm = pl.quant_train_chunk(s_, m_, b_, target, cfg, qcfg, model_lr, 1,
+                                                  best=best_)
+            box[0] = (s_, m_, b_, mm["best"])
+
+        step_times(tag, pl._qat_runner(target, cfg, qcfg, model_lr, chunk),
+                   (state, mos, bundle, pl._initial_best(state, bundle)), chunk, qat_step,
+                   kernel_names)
+
     log("[4] main path (h): the fused dispatch, graphed against eager")
     # the Kodak 'auto' fit, graphed again: equal to phase 4's run and to the eager loop
     g_fit = fit_pair("Kodak fit, 'auto'", fit_target, cfg_fit, FIT, FIT_POINTS, FUSED["rise_db"])
     same("Kodak fit against phase 4's", g_fit.state, res.state)
-    # the binned fit of phase (a) against the eager loop
-    (e_state, e_hist, _, _), e_s, e_n, _ = run(lambda: eager_fit(fit_target, cfg_bin, FIT,
-                                                                FIT_POINTS))
-    same("binned fit best state", res_bin.state, e_state)
-    for k, v in e_hist.items():
-        same(f"binned fit history {k}", res_bin.history[k], v)
-    check(all(e_n[k] == FIT["iterations"] for k in "ade"), f"(h) binned eager launches {e_n}")
-    info["binned fit, 'pallas' + E"] = dict(eager_s=e_s, launches=e_n)
-    log(f"  (h) binned fit, 'pallas' + E: phase (a)'s graphed fit torch.equal to the eager "
-        f"loop ({e_s:.3f} s)")
+    # phase 4's graphed fits (binned, odd grid, 2K 'hier') against their eager loops
+    for tag, (target, cfg, fit, points, g, g_n, g_s) in fits.items():
+        e_s, _ = against_eager(tag, target, cfg, fit, points, g, g_n, g_s)
+        log(f"  (h) {tag}: phase 4's graphed fit torch.equal to the eager loop (best state, "
+            f"history), launches equal ({launch_note(g_n)}); {fit['iterations']} steps graphed "
+            f"{g_s:.3f} s, eager {e_s:.3f} s")
 
     # the coding path of phase (f) against its schedule run eagerly
     warm = QAT["warmup_iter"]
@@ -1211,7 +1314,7 @@ def fused_dispatch(dev, kernels: dict, fit_target: torch.Tensor, cfg_fit, res, c
                 float(best[0]), torch.cat(warm_psnr), torch.cat(psnrs), torch.cat(losses), lr)
 
     (q_state, q_bundle, q_best, q_warm, q_psnr, q_loss, model_lr), q_s, q_n, _ = run(eager_coding)
-    check(tr.captures(cfg_q, dev), "(h) coding path: not a route of CAPTURE_SET")
+    check(tr.captures(cfg_q, dev), "(h) coding path: not a capturing route")
     same("coding path state", res_q.state, q_state)
     same("coding path bundle", res_q.bundle, q_bundle)
     same("coding path PSNR", (res_q.metrics["warmup_psnr"], res_q.metrics["psnr"],
@@ -1220,6 +1323,29 @@ def fused_dispatch(dev, kernels: dict, fit_target: torch.Tensor, cfg_fit, res, c
     info["coding path"] = dict(graphed_s=qat_s, eager_s=q_s, launches=q_n, best_psnr=q_best)
     log(f"  (h) coding path: {warm} + {QAT['steps']} steps graphed {qat_s:.3f} s (phase (f)), "
         f"eager {q_s:.3f} s; torch.equal (state, bundle, PSNRs), best {q_best:.4f} dB")
+
+    # 'dense' and 'sweep' chunks (B + C) at the Kodak fit state
+    cfg_dense = dataclasses.replace(cfg_fit, raster_backend="dense")
+    cfg_sweep = dataclasses.replace(cfg_fit, raster_backend="sweep")
+    for cfg_ in (cfg_dense, cfg_sweep):
+        chunk_pair(f"'{cfg_.raster_backend}' chunks", res.state, cfg_, fit_target,
+                   FUSED["chunks"], FUSED["chunk"])
+    # QAT on the odd grid ('auto' -> 'pallas' + 'top_k': A + D)
+    odd = fits["odd-grid fit, 'auto' -> 'pallas' + 'top_k'"]
+    target_odd, cfg_odd, res_odd = odd[0], odd[1], odd[4]
+    bundle_odd, mos_odd = qat_pair("QAT, odd grid", res_odd.state, cfg_odd, target_odd,
+                                   FUSED["chunks"], FUSED["chunk"], model_lr)
+    # fit_batch (p1): each chunk of the block one replay; (p1) held it equal
+    n_img = len(batch["states"])
+    p1 = report["phases"]["parallel"]["fit_batch"]
+    check(batch["graphed"], "(h) fit_batch: its route does not capture")
+    info["fit_batch"] = dict(graphed_s=p1["seconds"], eager_s=p1["alone_seconds"],
+                             launches=p1["launches"], images=n_img,
+                             steps=batch["tcfg"].iterations)
+    log(f"  (h) fit_batch: {n_img} images x {batch['tcfg'].iterations} steps graphed "
+        f"{p1['seconds']:.3f} s ({p1['seconds'] / n_img:.3f} s an image), each image alone "
+        f"eagerly {p1['alone_seconds']:.3f} s ({p1['alone_seconds'] / n_img:.3f} s an image); "
+        f"torch.equal (states, history) and launches equal in (p1)")
 
     # the 2K 'auto' fit (B + C) on the render of the converged 2K state
     d2 = dict(np.load(STATE_2K))
@@ -1232,32 +1358,47 @@ def fused_dispatch(dev, kernels: dict, fit_target: torch.Tensor, cfg_fit, res, c
                   FUSED["k2_rise_db"])
 
     # per-step times: replays against the eager step, at each route's state
-    nb, nc = names["b"], names["c"]
+    na, nb, nc, nd = names["a"], names["b"], names["c"], names["d"]
     train_steps(f"Kodak 'auto', {int(res.state.num_active)} active", res.state, cfg_fit,
                 fit_target, FIT["prune_iter"], nb + nc)
+    res_bin = fits["binned fit, 'pallas' + E"][4]
+    cfg_bin = fits["binned fit, 'pallas' + E"][1]
     train_steps(f"Kodak 'pallas' + E, {int(res_bin.state.num_active)} active", res_bin.state,
-                cfg_bin, fit_target, FIT["prune_iter"], names["a"] + names["d"] + names["e"])
+                cfg_bin, fit_target, FIT["prune_iter"], na + nd + names["e"])
+    train_steps(f"odd grid 'auto' ('pallas' + 'top_k'), {int(res_odd.state.num_active)} active",
+                res_odd.state, cfg_odd, target_odd, ODD_FIT["prune_iter"], na + nd)
+    for cfg_ in (cfg_dense, cfg_sweep):
+        train_steps(f"Kodak '{cfg_.raster_backend}', {int(res.state.num_active)} active",
+                    res.state, cfg_, fit_target, FIT["prune_iter"], nb + nc)
+    target2h, cfg2h, fit2h, _, res2h, _, _ = fits["2K fit, 'pallas' + 'hier'"]
+    train_steps(f"2K 'pallas' + 'hier', {int(res2h.state.num_active)} active", res2h.state,
+                cfg2h, target2h, fit2h["prune_iter"], na + nd)
     train_steps(f"2K 'auto', {int(g2.state.num_active)} active", g2.state, cfg2, target2,
                 FUSED["k2_fit"]["prune_iter"], nb + nc)
     st_q, b_q = res_q.state, res_q.bundle
-    mos = tr.make_optimizer(tcfg_q).init(st_q.params)
-    box = [(st_q, mos, b_q, None)]
+    qat_steps(f"QAT 'auto', {int(st_q.num_active)} active", st_q, b_q,
+              tr.make_optimizer(tcfg_q).init(st_q.params), cfg_q, fit_target,
+              tcfg_q.prune_iter, model_lr, nb + nc)
+    qat_steps(f"QAT odd grid, {int(res_odd.state.num_active)} active", res_odd.state, bundle_odd,
+              mos_odd, cfg_odd, target_odd, tcfg_q.prune_iter, model_lr, na + nd)
+    # fit_batch's block step: one replay steps every image of the block
+    bcfg, btc = batch["cfg"], batch["tcfg"]
+    tss_b = [tr._morton_resort(ts, bcfg) for ts in batch["states"]]
+    txb = tr.make_optimizer(btc)
+    box_b = [tss_b]
 
-    def qat_step():
-        s_, m_, b_, best_ = box[0]
-        s_, m_, b_, mm = pl.quant_train_chunk(s_, m_, b_, fit_target, cfg_q, qcfg, model_lr, 1,
-                                              best=best_)
-        box[0] = (s_, m_, b_, mm["best"])
+    def block_step():
+        box_b[0] = [tr.train_step(ts, t_, bcfg, btc, txb)[0]
+                    for ts, t_ in zip(box_b[0], batch["targets"])]
 
-    step_times(f"QAT 'auto', {int(st_q.num_active)} active",
-               pl._qat_runner(fit_target, cfg_q, qcfg, model_lr, tcfg_q.prune_iter),
-               (st_q, mos, b_q, pl._initial_best(st_q, b_q)), tcfg_q.prune_iter, qat_step,
-               nb + nc)
+    step_times(f"fit_batch block of {n_img}", tr.ChunkRunner(
+        psh._block_chunk(list(batch["targets"]), bcfg, btc, btc.prune_iter, True), True),
+        psh._block_carry(tss_b, bcfg), btc.prune_iter, block_step, nb + nc, per=n_img)
     st = info["steps"]
     line = "(h) fused dispatch: " + "; ".join(
         f"{k} {v['graphed_ms']:.4f} ms graphed / {v['eager_ms']:.4f} eager (busy "
         f"{v['busy_ms']:.4f}, capture {v['capture_ms']:.0f} ms)" for k, v in st.items()) + (
-        "; fits graphed / eager: " + ", ".join(
+        "; graphed / eager: " + ", ".join(
             f"{k} {v['graphed_s']:.2f} / {v['eager_s']:.2f} s" for k, v in info.items()
             if "graphed_s" in v))
     return info, line
@@ -1762,8 +1903,9 @@ def run() -> None:
           f"odd grid: 'auto' resolved to {gi.resolve_backend(cfg_odd, dev)!r}")
     log(f"[4] main path (c): fit_image of the top-left {oh}x{ow} crop "
         f"({-(-ow // 16)}x{-(-oh // 16)} tiles), 'auto' -> 'pallas', {ODD_FIT}")
-    res_odd, launches_odd = run_fit("odd-grid fit", fit_target[:oh, :ow].contiguous(), cfg_odd,
-                                    ODD_FIT, FIT_POINTS, ODD_RISE_DB, False)
+    target_odd = fit_target[:oh, :ow].contiguous()
+    res_odd, launches_odd = run_fit("odd-grid fit", target_odd, cfg_odd, ODD_FIT, FIT_POINTS,
+                                    ODD_RISE_DB, False)
     check(launches_odd["d"] == ODD_FIT["iterations"] == launches_odd["a"],
           f"odd grid: kernels A and D launched {launches_odd['a']} and {launches_odd['d']} times")
 
@@ -1781,7 +1923,8 @@ def run() -> None:
     log(f"[4] main path (d): fit_image at {h2}x{w2}, {K2_POINTS} Gaussians, {K2_STEPS} steps, "
         f"'pallas' with 'auto' -> 'hier' binning (super_overflow at init "
         f"{int(bins2k.super_overflow)})")
-    fit2k = dict(iterations=K2_STEPS, prune_iter=K2_STEPS)
+    # two chunks, so that the second replays the graph the first warms up
+    fit2k = dict(iterations=K2_STEPS, prune_iter=K2_STEPS // 2)
     res2k, launches_2k = run_fit("2K fit", target2k, cfg2k, fit2k, K2_POINTS, 0.0, False)
     check(launches_2k["a"] == launches_2k["d"] == K2_STEPS, f"2K: launches {launches_2k}")
     s2k = res2k.state
@@ -2061,7 +2204,7 @@ def run() -> None:
         dist.init_process_group("nccl", init_method=f"file://{pg_dir}/store", rank=0,
                                 world_size=1)
         try:
-            report["phases"]["parallel"], report["phases"]["legacy"], par_line = \
+            report["phases"]["parallel"], report["phases"]["legacy"], par_line, batch = \
                 parallel_and_legacy(dev, fit_target, res.state, s2k, cfg2k, target2k, kernels)
         finally:
             dist.destroy_process_group()
@@ -2471,10 +2614,18 @@ def run() -> None:
 
     # (h) the fused dispatch, after phase 5's step timings (so that those keep
     # their protocol); launches reported apart, as (g)'s
+    phase4 = report["phases"]
+    fits = {"binned fit, 'pallas' + E": (fit_target, cfg_bin, FIT, FIT_POINTS, res_bin,
+                                         launches_bin, phase4["binned fit"]["seconds"]),
+            "odd-grid fit, 'auto' -> 'pallas' + 'top_k'": (
+                target_odd, cfg_odd, ODD_FIT, FIT_POINTS, res_odd, launches_odd,
+                phase4["odd-grid fit"]["seconds"]),
+            "2K fit, 'pallas' + 'hier'": (target2k, cfg2k, fit2k, K2_POINTS, res2k, launches_2k,
+                                          phase4["2K fit"]["seconds"])}
     report["phases"]["fused dispatch"], fused_line = fused_dispatch(
-        dev, kernels, fit_target, cfg_fit, res, cfg_bin, res_bin, cfg_q, tcfg_q, qcfg, res_q,
-        qat_s, dict(a=names_a, b=names_b, c=["chunk_backward_kernel"], d=names_d,
-                    e=["tile_bin_kernel"]))
+        dev, kernels, fit_target, cfg_fit, res, fits, cfg_q, tcfg_q, qcfg, res_q, qat_s, batch,
+        dict(a=names_a, b=names_b, c=["chunk_backward_kernel"], d=names_d,
+             e=["tile_bin_kernel"]))
 
     # rule 2's ranking: each kernel's launches on the main paths taken at the
     # state they run at (the odd-grid fit's at the fit state, which it is cut

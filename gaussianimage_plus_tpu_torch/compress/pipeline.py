@@ -11,9 +11,11 @@ QAT steps (``quant_train_chunk``), the encoder (``compress_wo_ec``,
 accounting (``analysis_wo_ec``, :469-509). The JAX ``_uniform_fwd`` is
 ``quantizers.uniform_forward``. ``quant_train_macro_chunk`` (``:311-341``)
 runs chunks of QAT steps step for step as successive ``quant_train_chunk``
-calls: on the card, on a route of ``train.trainer.CAPTURE_SET``, as replays of
-one captured chunk (``train.trainer.ChunkGraph``), as the JAX one fuses them
-into one TPU dispatch; elsewhere eagerly.
+calls: on the card, wherever ``render`` runs through a kernel
+(``train.trainer.captures``: ``'pallas'`` with any binner, as on a tile grid
+that 16 does not divide, ``'list'``, ``'list_t'``, ``'dense'``, ``'sweep'``), as
+replays of one captured chunk (``train.trainer.ChunkGraph``), as the JAX one
+fuses them into one TPU dispatch; through ``'xla'`` and on the CPU eagerly.
 
 Every quantizer statistic is taken over the active rows only. The QAT step
 never re-sorts the rows (the JAX loop does not), masks the model update of
@@ -361,7 +363,7 @@ def quant_train_macro_chunk(state: GaussianState, model_opt_state: AdamState,
     """``n_chunks`` chunks of ``chunk`` QAT steps, step for step successive
     ``quant_train_chunk`` calls carrying ``best``: the model Adam, the three
     quantizer Adams, the VQ codebooks' EMA step and the best snapshot. On
-    the card, on a route of ``train.trainer.CAPTURE_SET``, the chunks are
+    the card, on a route that ``train.trainer.captures``, the chunks are
     replays of one captured chunk, warmed up first on a clone of the carry;
     elsewhere they run eagerly. Returns (state, model_opt_state, bundle,
     metrics) with ``loss`` and ``psnr`` [n_chunks * chunk] and the ``best``

@@ -2,8 +2,9 @@
 
 Port of ``gaussianimage_plus_tpu/core/binning.py`` — ``bin_gaussians`` with
 the exact ``'top_k'``, ``'scatter'`` and ``'rank'`` selections (``:91-119``,
-``:245-315``), the two-level ``'hier'`` method (``_bin_hier``, ``:122-172``,
-plain tensor code in both packages), ``morton_perm`` (``:318-343``), and the
+``:245-315``; none reads a value on the host: ``select_members``), the
+two-level ``'hier'`` method (``_bin_hier``, ``:122-172``, plain tensor code
+in both packages), ``morton_perm`` (``:318-343``), and the
 row-range binners of the tile-sharded render: ``_membership_rows``
 (``:70-89``), ``bin_gaussian_rows`` (``:175-184``), ``bin_gaussian_rows_hier``
 (``:187-244``) and ``gather_tile_attrs`` (``:346-348``).
@@ -50,55 +51,66 @@ def _membership(proj: Projected, tile_bounds: Tuple[int, int],
     return member.reshape(tb_y * tb_x, -1)
 
 
-def select_members(member: torch.Tensor, cap: int, method: str = "top_k") -> TileBins:
-    """First ``cap`` members of each row of a [T, N] bool matrix, in index
-    order. ``'top_k'`` selects by keys ``N - index``; ``'scatter'`` writes
-    each member to its rank slot; ``'rank'`` binary-searches each slot's
-    member in the membership cumsum. All three give the same result."""
+def _first_by_rank(member: torch.Tensor, cap: int, count: torch.Tensor):
+    """(ids, mask) [T, cap]: the (s+1)-th member of a row is the first index
+    where the inclusive membership cumsum reaches s+1, one batched binary
+    search (``torch.searchsorted``) over the nondecreasing rank rows."""
+    T, N = member.shape
+    rank = torch.cumsum(member, dim=1, dtype=torch.int32)
+    k_eff = min(cap, N)
+    targets = torch.arange(1, k_eff + 1, dtype=torch.int32, device=member.device)
+    lo = torch.searchsorted(rank, targets.expand(T, k_eff).contiguous(), out_int32=True)
+    mask = targets[None, :] <= count[:, None]
+    ids = torch.where(mask, torch.clamp(lo, max=N - 1), torch.zeros_like(lo))
+    if k_eff < cap:
+        ids = torch.nn.functional.pad(ids, (0, cap - k_eff))
+        mask = torch.nn.functional.pad(mask, (0, cap - k_eff))
+    return ids, mask
+
+
+def _first_by_scatter(member: torch.Tensor, cap: int, count: torch.Tensor):
+    """(ids, mask) [T, cap]: each member written to its rank slot, the rest
+    to a dropped column."""
     T, N = member.shape
     dev = member.device
+    rank = torch.cumsum(member, dim=1, dtype=torch.int32) - 1
+    slot = torch.where(member & (rank < cap), rank, torch.full_like(rank, cap))
+    gidx = torch.arange(N, dtype=torch.int32, device=dev).expand(T, N)
+    ids = torch.zeros((T, cap + 1), dtype=torch.int32, device=dev)
+    ids.scatter_(1, slot.to(torch.int64), gidx)   # slot == cap: dropped column
+    ids = ids[:, :cap].contiguous()
+    mask = torch.arange(cap, device=dev)[None, :] < count[:, None]
+    return torch.where(mask, ids, torch.zeros_like(ids)), mask
+
+
+def select_members(member: torch.Tensor, cap: int, method: str = "top_k") -> TileBins:
+    """First ``cap`` members of each row of a [T, N] bool matrix, in index
+    order: ids, mask and count equal the JAX ``_select_members``'s bit for
+    bit, whatever the method. ``'rank'`` binary-searches each slot's member
+    in the membership cumsum; ``'scatter'`` writes each member to its rank
+    slot; ``'top_k'`` is the JAX name of the default.
+
+    No method reads a value on the host, so a CUDA graph can hold each. The
+    JAX ``'top_k'`` runs ``lax.top_k`` at an occupancy tier that it picks on
+    the device with ``lax.switch`` (64, 128 or ``min(cap, N)``); every tier
+    selects the same members, so the tier is only a speed choice, and
+    reading it on the host here would sync the step. ``'top_k'`` therefore
+    runs the rank search, the fastest exact selection on the card, in ms a
+    call in a CUDA graph (``scripts/torch_select_members.py``; NVIDIA H100
+    80GB HBM3, 700.00 W):
+
+    - odd-grid fit state ``[1457, 5000]``, cap 256: 0.2030; ``torch.topk``
+      at ``min(cap, N)`` 0.2607, the scatter 0.3299 (``torch.topk`` at the
+      tier 128 that the JAX function picks there 0.1884);
+    - 2K ``'hier'`` level 1 ``[176, 20000]``, 1024: 0.1008; topk 0.1351;
+    - 2K ``'hier'`` level 2 ``[10752, 1024]``, 256: 0.2287; topk 0.6646,
+      the scatter 0.4071.
+    """
     count = torch.clamp(member.sum(dim=1, dtype=torch.int32), max=cap)
-    if method == "top_k":
-        ar = torch.arange(N, dtype=torch.int32, device=dev)
-        key = torch.where(member, N - ar[None, :], torch.zeros((), dtype=torch.int32, device=dev))
-        # occupancy tiers, as in the JAX function: when every row's count
-        # fits a smaller k, top_k at that k selects the same members
-        k_eff = min(cap, N)
-        max_c = int(count.max()) if T else 0
-        k = next(t for t in (64, 128, k_eff) if t >= min(max_c, k_eff))
-        topv = torch.topk(key, min(k, k_eff), dim=1, largest=True, sorted=True).values
-        if topv.shape[1] < cap:
-            topv = torch.nn.functional.pad(topv, (0, cap - topv.shape[1]))
-        mask = topv > 0
-        ids = torch.where(mask, N - topv, torch.zeros_like(topv))
-    elif method == "rank":
-        # the (s+1)-th member of a row is the first index where the inclusive
-        # membership cumsum reaches s+1: a batched binary search over the
-        # nondecreasing rank rows, as in the JAX function
-        rank = torch.cumsum(member.to(torch.int32), dim=1, dtype=torch.int32)
-        k_eff = min(cap, N)
-        targets = torch.arange(1, k_eff + 1, dtype=torch.int32, device=dev)[None, :]
-        lo = torch.zeros((T, k_eff), dtype=torch.int64, device=dev)
-        hi = torch.full((T, k_eff), N, dtype=torch.int64, device=dev)
-        for _ in range(max(N, 2).bit_length()):
-            mid = (lo + hi) >> 1
-            go_right = torch.gather(rank, 1, torch.clamp(mid, max=N - 1)) < targets
-            lo = torch.where(go_right, mid + 1, lo)
-            hi = torch.where(go_right, hi, mid)
-        mask = targets <= count[:, None]
-        ids = torch.where(mask, torch.clamp(lo, max=N - 1), torch.zeros_like(lo))
-        if k_eff < cap:
-            ids = torch.nn.functional.pad(ids, (0, cap - k_eff))
-            mask = torch.nn.functional.pad(mask, (0, cap - k_eff))
+    if method in ("top_k", "rank"):
+        ids, mask = _first_by_rank(member, cap, count)
     elif method == "scatter":
-        rank = torch.cumsum(member.to(torch.int32), dim=1, dtype=torch.int32) - 1
-        slot = torch.where(member & (rank < cap), rank, torch.full_like(rank, cap))
-        gidx = torch.arange(N, dtype=torch.int32, device=dev).expand(T, N)
-        ids = torch.zeros((T, cap + 1), dtype=torch.int32, device=dev)
-        ids.scatter_(1, slot.to(torch.int64), gidx)   # slot == cap: dropped column
-        ids = ids[:, :cap].contiguous()
-        mask = torch.arange(cap, device=dev)[None, :] < count[:, None]
-        ids = torch.where(mask, ids, torch.zeros_like(ids))
+        ids, mask = _first_by_scatter(member, cap, count)
     else:
         raise ValueError(f"unknown binning method {method!r}")
     return TileBins(ids=ids.to(torch.int32), mask=mask, count=count)

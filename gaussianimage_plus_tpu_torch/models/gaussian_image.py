@@ -180,8 +180,9 @@ def resolve_backend(cfg: GaussianConfig, device) -> str:
     return "list_t" if (tb_x * tb_y) % TB_T == 0 else "pallas"
 
 
-# backends that launch a kernel, so render 16x16 tiles only (check_kernel_tiles)
-_KERNEL_BACKENDS = frozenset({"pallas", "list", "list_t", "dense", "sweep"})
+# backends that launch a kernel, so render 16x16 tiles only (check_kernel_tiles);
+# the trainer's chunks on these run as CUDA graph replays (train.trainer.captures)
+KERNEL_BACKENDS = frozenset({"pallas", "list", "list_t", "dense", "sweep"})
 
 
 def render_binner(cfg: GaussianConfig, device) -> Optional[str]:
@@ -212,7 +213,7 @@ def render(state: GaussianState, cfg: GaussianConfig,
     """Forward pass -> [H, W, 3] clamped to [0, 1]: project -> (bin) ->
     rasterize -> clamp, on the device of the state's tensors."""
     backend = resolve_backend(cfg, state.active.device)
-    if backend in _KERNEL_BACKENDS:
+    if backend in KERNEL_BACKENDS:
         check_kernel_tiles(cfg.block_h, cfg.block_w, f"raster_backend={backend!r}")
     elif cfg.bin_method == "pallas":
         check_kernel_tiles(cfg.block_h, cfg.block_w, "bin_method='pallas'")
@@ -264,7 +265,7 @@ def render_prepared(prep, cfg: GaussianConfig) -> torch.Tensor:
     if (cfg.block_h, cfg.block_w) == (BLOCK_H, BLOCK_W):
         return _clip01(rasterize_prepared_flat(prep, cfg.H, cfg.W))
     backend = resolve_backend(cfg, prep.table.device)
-    if backend in _KERNEL_BACKENDS:
+    if backend in KERNEL_BACKENDS:
         check_kernel_tiles(cfg.block_h, cfg.block_w, f"raster_backend={backend!r}")
     return _clip01(render_table(_gather(prep.table, prep.ids), prep.counts, cfg.H, cfg.W,
                                 cfg.block_h, cfg.block_w))

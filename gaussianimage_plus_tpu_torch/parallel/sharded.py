@@ -9,9 +9,15 @@ Port of ``gaussianimage_plus_tpu/parallel/sharded.py``: ``make_mesh``
 (``:319-331``), on ``torch.distributed``.
 
 - **Images (data parallel).** Each image is its own problem: a rank fits its
-  contiguous block of the batch with ``train_chunk``, one image after another
+  contiguous block of the batch, one image after another within a chunk
   (the JAX shard_map body's ``lax.map``), with no communication until
-  ``fit_batch`` gathers every image's state onto every rank at the end.
+  ``fit_batch`` gathers every image's state onto every rank at the end. As
+  the JAX ``fit_batch`` is one dispatch a chunk, a chunk of the rank's whole
+  block is, on the card wherever ``train.trainer.captures``, a replay of one
+  ``ChunkGraph`` whose carry is the block's ``(ts, last render)`` pairs; the
+  growth and the final fill follow it eagerly, image by image (as
+  ``train.trainer.train_macro_chunk`` grows after its replays). On the CPU,
+  and for tensors on the CPU under a gloo mesh, the same chunks run eagerly.
 - **Tiles (one large image).** The Gaussian parameters are replicated; each
   rank projects them, bins and rasterizes only its own flat range of tile
   rows, and the tiles are all-gathered into the full image, so every rank
@@ -30,8 +36,9 @@ Deviations, on purpose:
   one axis (the JAX docstring's 2D ``('data', 'tile')``) are not provided.
 - A torch ``TrainState`` holds a ``torch.Generator``, which cannot be stacked,
   so a batch of states is a list, one per image, not a state with a leading
-  batch axis. ``batch_train_chunk`` and ``batch_train_chunk_dp`` are one loop
-  over the rank's images: the JAX package's vmapped chunk and shard_map
+  batch axis. ``batch_train_chunk`` and ``batch_train_chunk_dp`` are one
+  eager loop over the rank's images (a single chunk gains nothing from a
+  graph's capture): the JAX package's vmapped chunk and shard_map
   chunk are two programs of one function (its tests hold them equal), and so
   ``fit_batch`` needs no fallback for a batch the mesh does not divide: the
   ranks take blocks that differ by one image.
@@ -72,7 +79,8 @@ from ..core.precision import resolve_device
 from ..core.render_tiled import _image_to_tiles, _tiles_to_image, rasterize_tiles
 from ..models.gaussian_image import (GaussianConfig, GaussianParams, GaussianState, _clip01,
                                      colors_of, project)
-from ..train.trainer import TrainConfig, TrainState, fit_image, init_train_state, train_chunk
+from ..train.trainer import (ChunkRunner, TrainConfig, TrainState, _grow_ts, _train_chunk,
+                             captures, fit_image, init_train_state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,20 +150,58 @@ def shard_batch(batch, mesh: Mesh, axis: str = "data"):
     return batch[_block(len(batch), mesh)]
 
 
+def _block_chunk(gts, cfg: GaussianConfig, tcfg: TrainConfig, n_steps: int, do_prune: bool):
+    """``fn(carry) -> (carry, outs)``: one chunk up to its growth (the
+    re-sort, ``n_steps`` steps, the prune) for every image of a block, one
+    after another. The carry holds one ``(ts, last pre-update render)`` pair
+    an image; ``outs`` are ``loss`` and ``psnr`` [B, n_steps] and
+    ``n_pruned`` [B]."""
+
+    def fn(carry):
+        new, ms = [], []
+        for (ts, _), gt in zip(carry, gts, strict=True):
+            ts, m, img = _train_chunk(ts, gt, cfg, tcfg, n_steps, do_prune)
+            new.append((ts, img))
+            ms.append(m)
+        return tuple(new), tuple(torch.stack([m[k] for m in ms])
+                                 for k in ("loss", "psnr", "n_pruned"))
+
+    return fn
+
+
+def _grow_block(carry, gts, cfg: GaussianConfig, tcfg: TrainConfig, do_grow: bool,
+                final_fill: bool, grow_draws=None):
+    """Each image's growth on its last render, eagerly and image by image,
+    with its own generator or ``grow_draws[i]``: (states, ``n_added`` [B])."""
+    tss, n_added = [], []
+    for i, ((ts, img), gt) in enumerate(zip(carry, gts, strict=True)):
+        n = torch.zeros((), dtype=torch.int32, device=img.device)
+        if do_grow:
+            ts, n = _grow_ts(ts, gt, cfg, tcfg, img, final_fill,
+                             grow_draws[i] if grow_draws is not None else None)
+        tss.append(ts)
+        n_added.append(n)
+    return tss, torch.stack(n_added)
+
+
+def _block_carry(tss, cfg: GaussianConfig):
+    return tuple((ts, torch.zeros((cfg.H, cfg.W, 3), device=ts.gaussians.active.device))
+                 for ts in tss)
+
+
 def batch_train_chunk(tss: Sequence[TrainState], gts, cfg: GaussianConfig, tcfg: TrainConfig,
                       n_steps: int, do_prune: bool, do_grow: bool, final_fill: bool = False,
                       grow_draws: Optional[Sequence[torch.Tensor]] = None):
-    """``train_chunk`` over each (state, image) pair in turn. ``grow_draws``:
-    one growth's draws per image. Returns (states, metrics stacked over the
-    images: ``loss`` and ``psnr`` [B, n_steps], ``n_pruned`` and ``n_added``
-    [B])."""
-    out, ms = [], []
-    for i, (ts, gt) in enumerate(zip(tss, gts)):
-        ts, m = train_chunk(ts, gt, cfg, tcfg, n_steps, do_prune, do_grow, final_fill,
-                            grow_draws[i] if grow_draws is not None else None)
-        out.append(ts)
-        ms.append(m)
-    return out, ({k: torch.stack([m[k] for m in ms]) for k in ms[0]} if ms else {})
+    """``train_chunk`` over each (state, image) pair, eagerly: every image's
+    steps and prune, then every image's growth. ``grow_draws``: one growth's
+    draws per image. Returns (states, metrics stacked over the images:
+    ``loss`` and ``psnr`` [B, n_steps], ``n_pruned`` and ``n_added`` [B])."""
+    if not tss:
+        return [], {}
+    carry, (loss, psnr, n_pruned) = _block_chunk(gts, cfg, tcfg, n_steps, do_prune)(
+        _block_carry(tss, cfg))
+    tss, n_added = _grow_block(carry, gts, cfg, tcfg, do_grow, final_fill, grow_draws)
+    return tss, {"loss": loss, "psnr": psnr, "n_pruned": n_pruned, "n_added": n_added}
 
 
 def batch_train_chunk_dp(tss: Sequence[TrainState], gts, cfg: GaussianConfig,
@@ -181,14 +227,28 @@ def _chunk_schedule(tcfg: TrainConfig):
 
 
 def _fit_local(tss, gts, cfg, tcfg, progress, grow_draws):
-    """The chunk schedule over this rank's states and images."""
+    """The chunk schedule over this rank's states and images: each chunk of
+    the whole block is one ``ChunkRunner`` call, on the card (where
+    ``captures``) a replay of one ``ChunkGraph`` over the block, the JAX
+    package's one dispatch per chunk; the growths follow it eagerly."""
+    if not tss:                     # a rank with no image of the batch
+        for it_end, _, _ in _chunk_schedule(tcfg):
+            if progress is not None:
+                progress(it_end, {})
+        return list(tss)
     draws = [iter(d) for d in grow_draws] if grow_draws is not None else None
+    graph = captures(cfg, tss[0].gaussians.active.device)
+    runner = ChunkRunner(_block_chunk([gt.clone() for gt in gts] if graph else gts, cfg, tcfg,
+                                      tcfg.prune_iter, tcfg.prune), graph)
+    carry = _block_carry(tss, cfg)
     for it_end, do_grow, final_fill in _chunk_schedule(tcfg):
         dr = [next(d) for d in draws] if (do_grow and draws is not None) else None
-        tss, m = batch_train_chunk(tss, gts, cfg, tcfg, tcfg.prune_iter, tcfg.prune,
-                                   do_grow, final_fill, dr)
+        carry, (loss, psnr, n_pruned) = runner.run(carry, 1)
+        tss, n_added = _grow_block(carry, gts, cfg, tcfg, do_grow, final_fill, dr)
+        carry = tuple((ts, img) for ts, (_, img) in zip(tss, carry))
         if progress is not None:
-            progress(it_end, m)
+            progress(it_end, {"loss": loss[0], "psnr": psnr[0], "n_pruned": n_pruned[0],
+                              "n_added": n_added})
     return tss
 
 

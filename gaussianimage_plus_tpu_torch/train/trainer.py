@@ -17,14 +17,16 @@ Port of ``gaussianimage_plus_tpu/train/trainer.py``: ``TrainConfig``,
   step's pre-update render, zeroing the moments of the grown slots.
 - ``train_macro_chunk`` runs ``n_chunks`` such chunks and one growth at the
   very end: step for step ``n_chunks`` calls of ``train_chunk`` with the
-  growth on the last. The JAX one is one ``jit`` + ``lax.scan`` dispatch;
-  here, on the card and on a route of ``CAPTURE_SET``, each chunk (re-sort,
-  steps, prune) is a replay of one ``torch.cuda.CUDAGraph`` (``ChunkGraph``),
+  growth on the last. The JAX one is one ``jit`` + ``lax.scan`` dispatch
+  whatever the backend or binner; here, on the card, each chunk (re-sort,
+  steps, prune) is a replay of one ``torch.cuda.CUDAGraph`` (``ChunkGraph``)
+  on every route that renders through a kernel (``captures``: ``'pallas'``
+  with any binner, ``'list'``, ``'list_t'``, ``'dense'``, ``'sweep'``),
   since the host's Python, autograd and launches take most of an eager
   step's time there. The growth draws from the generator and runs eagerly
-  after the last replay. Elsewhere, and on the CPU, the same chunks run
-  eagerly. The route decides, never a caught error: a capture or replay
-  that fails raises.
+  after the last replay. The plain ``'xla'`` path, a ``render_fn`` and the
+  CPU run the same chunks eagerly. The route decides, never a caught error:
+  a capture or replay that fails raises.
 - ``fit_image`` runs the chunks with the reference's cadence: a prune every
   ``prune_iter``, growth at the end of each grow period but the last, the
   final fill at ``iterations - grow_iter``. It calls ``train_macro_chunk``'s
@@ -70,8 +72,8 @@ from ..core.binning import bin_gaussians, morton_perm, resolve_bin_method
 from ..core.gaussian2d import tile_bounds_for
 from ..core.precision import resolve_device
 from ..models.gaussian_image import (GaussianConfig, GaussianParams, GaussianState, grow,
-                                     init_state, project, prune, psd_clamp, render,
-                                     render_binner, render_fast, resolve_backend)
+                                     KERNEL_BACKENDS, init_state, project, prune, psd_clamp,
+                                     render, render_binner, render_fast, resolve_backend)
 from .losses import loss_fn, ms_ssim
 from .metrics import psnr as psnr_fn
 from .optim import (Adam, AdamState, Adan, AdanState, adan, make_adam, step_lr, take_rows,
@@ -244,25 +246,26 @@ def train_chunk(ts: TrainState, gt: torch.Tensor, cfg: GaussianConfig, tcfg: Tra
     return ts, {**m, "n_added": n_added}
 
 
-# The resolved (backend, binner) routes whose chunks run as CUDA graph
-# replays on the card: their step (render, autograd through the kernels,
-# Adam, the best snapshot), re-sort and prune never synchronise with the
-# host, as a graph needs (held on the card under
-# torch.cuda.set_sync_debug_mode("error") by tests/test_torch_kernels_cuda.py;
-# the cap-free lists bin nothing: binner None). 'top_k' binning, which 'xla'
-# uses and 'hier' calls, reads its occupancy tier on the host
-# (core/binning.py select_members), so those routes, and a render_fn, run
-# eagerly.
-CAPTURE_SET = frozenset({("list_t", None), ("list", None), ("pallas", "pallas")})
-
-
 def captures(cfg: GaussianConfig, device, render_fn=None) -> bool:
     """Whether chunks at ``cfg`` on ``device`` run as graph replays: on a
-    CUDA device, through ``render`` (no ``render_fn``), on a route of
-    ``CAPTURE_SET``."""
+    CUDA device, through ``render`` (no ``render_fn``), whose resolved
+    backend launches a kernel: ``'pallas'`` with any binner (``'top_k'``,
+    ``'hier'``, ``'scatter'``, ``'rank'``, ``'auto'`` or kernel E),
+    ``'list'``, ``'list_t'``, ``'dense'`` or ``'sweep'``. Their step
+    (render, autograd through the kernels, Adam, the best snapshot), re-sort
+    and prune never synchronise with the host, as a graph needs (held on the
+    card under ``torch.cuda.set_sync_debug_mode("error")`` by
+    ``tests/test_torch_kernels_cuda.py``). Two routes run eagerly:
+
+    - ``'xla'`` (and any other backend name: the plain tiled path), the
+      reference path on the card: ``core/render_tiled._tile_batches`` reads
+      ``counts.max()`` on the host to size its memory batches;
+    - a ``render_fn``, such as the tile-sharded render: it runs collectives
+      and reads ``super_overflow()`` on the host (``parallel/sharded.py``).
+    """
     if torch.device(device).type != "cuda" or render_fn is not None:
         return False
-    return (resolve_backend(cfg, device), render_binner(cfg, device)) in CAPTURE_SET
+    return resolve_backend(cfg, device) in KERNEL_BACKENDS
 
 
 def _tensors(tree) -> list:
@@ -438,7 +441,7 @@ def train_macro_chunk(ts: TrainState, gt: torch.Tensor, cfg: GaussianConfig,
     the last pre-update render: step for step ``n_chunks`` successive
     ``train_chunk`` calls with the growth on the last only.
 
-    On the card, on a route of ``CAPTURE_SET``, the chunks are replays of
+    On the card, on a route that ``captures``, the chunks are replays of
     one captured chunk, warmed up first on a clone of ``ts``; elsewhere they
     run eagerly (module docstring). Returns (ts, metrics): ``loss`` and
     ``psnr`` [n_chunks * chunk], ``n_pruned`` summed, ``n_added``, and per

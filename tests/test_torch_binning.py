@@ -224,3 +224,46 @@ def test_gather_tile_attrs():
     out_t = tb.gather_tile_attrs(bt, pt.xys, torch.as_tensor(colors))
     for a, b in zip(out_t, out_j):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+# occupancy maxima at every edge of the JAX function's top_k tiers (64, 128,
+# min(cap, N)) and past the cap (256), over N = 400 rows and N = 100 < cap
+TIER_EDGES = [(m, 400) for m in (0, 1, 64, 65, 128, 129, 256, 300)] + [
+    (m, 100) for m in (0, 1, 64, 65, 100)]
+
+
+@pytest.mark.parametrize("fullest,N", TIER_EDGES, ids=[f"max{m}-N{n}" for m, n in TIER_EDGES])
+def test_select_members_at_every_tier_edge(fullest, N):
+    """The sync-free selections (``'top_k'``, ``'rank'``, ``'scatter'``) equal
+    the JAX ``_select_members(..., 'top_k')`` (ids, mask, count) when the
+    fullest row holds ``fullest`` members, whichever tier JAX picks."""
+    rng = np.random.default_rng(fullest * 1000 + N)
+    T, cap = 9, 256
+    member = np.zeros((T, N), bool)
+    for t in range(T):
+        k = fullest if t < 2 else int(rng.integers(0, fullest + 1))
+        member[t, rng.choice(N, size=k, replace=False)] = True
+    bj = jb._select_members(jnp.asarray(member), cap, "top_k")
+    assert int(np.asarray(bj.count).max()) == min(fullest, cap)
+    for method in ("top_k", "rank", "scatter"):
+        assert_bins_equal(tb.select_members(torch.as_tensor(member), cap, method), bj,
+                          f"{method}, fullest row {fullest}, N {N}")
+
+
+@pytest.mark.parametrize("super_cap", [0, 12], ids=["no-overflow", "overflow"])
+@pytest.mark.parametrize("H,W", [(96, 160), (90, 150)])
+def test_bin_hier_scene(H, W, super_cap):
+    """The two-level ``'hier'`` binner (super-tiles of 2x2 tiles) against the
+    JAX ``_bin_hier``: ids, mask, count and ``super_overflow``, with its
+    default budget (equal to the flat ``'top_k'`` bins then) and with one
+    that drops candidates."""
+    xy, cov, *_ = scene(n=160, seed=31, n_invalid=6, H=H, W=W)
+    xy[:40] = 20.0            # a crowded super-tile
+    pj, pt = both_projections(xy, cov, H, W)
+    bj = jb.bin_gaussians(pj, H, W, cap=32, method="hier", super_size=2, super_cap=super_cap)
+    bt = tb.bin_gaussians(pt, H, W, cap=32, method="hier", super_size=2, super_cap=super_cap)
+    assert_bins_equal(bt, bj, f"hier super_cap {super_cap}")
+    _eq(bt.super_overflow, bj.super_overflow, "super_overflow")
+    assert (int(bt.super_overflow) > 0) == (super_cap > 0)
+    if super_cap == 0:
+        assert_bins_equal(tb.bin_gaussians(pt, H, W, cap=32), bj, "hier against flat")

@@ -25,9 +25,12 @@ The trainer's CUDA graphs: a graphed ``fit_image`` (each chunk a replay of
 one captured chunk) and a graphed ``train_macro_chunk`` equal the eager
 ``train_chunk`` loop bit for bit at 768x512, with equal launch counts;
 ``quant_train_macro_chunk`` equals successive ``quant_train_chunk`` calls;
-each route of ``train.trainer.CAPTURE_SET`` runs a chunk, and a QAT chunk,
-under ``torch.cuda.set_sync_debug_mode("error")``; a step that reads a value
-on the host makes the capture raise.
+every route that renders through a kernel (``train.trainer.captures``:
+``'pallas'`` with each binner, the odd tile grid's ``'auto'`` among them, the
+chunk lists, ``'dense'`` and ``'sweep'``) runs a chunk, and a QAT chunk, under
+``torch.cuda.set_sync_debug_mode("error")``; on the odd grid a graphed fit
+and QAT chunk, and a graphed ``fit_batch`` of two images, equal their eager
+runs; a step that reads a value on the host makes the capture raise.
 
 Kernel A reads its tile's rows of the attribute table through the slot
 ids, 128 at a time, and gives a thread 2 pixels of one column; besides the
@@ -66,7 +69,6 @@ from gaussianimage_plus_tpu_torch.core.binning import bin_gaussians
 from gaussianimage_plus_tpu_torch.core.gaussian2d import project_gaussians_2d_covariance
 from gaussianimage_plus_tpu_torch.kernels import (binning_tiles, raster_binned, raster_dense,
                                                   raster_list)
-from gaussianimage_plus_tpu_torch.train.trainer import CAPTURE_SET
 
 ATOL, RTOL, MAX_FRAC = 2e-5, 1e-5, 1e-4
 
@@ -677,13 +679,16 @@ def test_train_chunk_render_fn_default_is_bit_equal(card):
         assert torch.equal(x, y)
 
 
-def _kodak_fit_case(card, **cfg_kw):
-    """A 768x512 target (the render of a seeded random scene), its config at
-    5000 rows and a 2500-point train state."""
+# the 752x496 crop's grid, 47x31 tiles: 'auto' resolves to 'pallas' + 'top_k' there
+ODD_HW = dict(H=496, W=752)
+
+
+def _kodak_fit_case(card, H=512, W=768, **cfg_kw):
+    """A 768x512 target (the render of a seeded random scene; ``H``, ``W``
+    another size), its config at 5000 rows and a 2500-point train state."""
     from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
     from gaussianimage_plus_tpu_torch.train import trainer as tr
 
-    H, W = 512, 768
     cfg = gi.GaussianConfig(H=H, W=W, max_num_points=5000, **cfg_kw)
     proj, colors, opacity = _scene(3000, H, W, seed=40)
     inputs = raster_list.list_inputs(proj, colors, opacity, H, W, 128)
@@ -703,19 +708,24 @@ def _assert_trees_equal(a, b, what):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("backend", ["auto", "pallas"])
+@pytest.mark.parametrize("backend", ["auto", "pallas", "odd-grid auto"])
 def test_graphed_fit_is_bit_equal(card, backend):
     """``fit_image`` at 768x512 (2500 -> 5000 Gaussians, a prune every 50,
     the growth at 100 with the final fill, 200 steps, a log point at 150)
     through ``'auto'`` (list_t: B + C) and ``'pallas'`` + kernel E (A + D +
-    E): its chunks replay one captured chunk, and its best state, history
+    E), and at 752x496 through ``'auto'`` (``'pallas'`` + ``'top_k'``: A +
+    D): its chunks replay one captured chunk, and its best state, history
     and launch counts equal the eager ``train_chunk`` loop's."""
     from gaussianimage_plus_tpu_torch.kernels import wrappers
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
     from gaussianimage_plus_tpu_torch.train import trainer as tr
 
-    kw = {} if backend == "auto" else dict(raster_backend="pallas", bin_method="pallas")
-    gt, cfg, tcfg, ts0 = _kodak_fit_case(card, **kw)
+    kw = dict(raster_backend="pallas", bin_method="pallas") if backend == "pallas" else {}
+    gt, cfg, tcfg, ts0 = _kodak_fit_case(card, **(ODD_HW if backend.startswith("odd") else {}),
+                                         **kw)
     assert tr.captures(cfg, card)
+    if backend.startswith("odd"):
+        assert (gi.resolve_backend(cfg, card), gi.render_binner(cfg, card)) == ("pallas", "auto")
     draws = torch.rand((5000, 3), generator=torch.Generator().manual_seed(42)).to(card)
     for k in wrappers():
         k.launches = 0
@@ -769,14 +779,17 @@ def test_graphed_macro_chunk_is_bit_equal(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("grid", ["768x512", "odd 752x496"])
 @pytest.mark.parametrize("color_quant", ["lsq", "vq"])
-def test_graphed_quant_macro_chunk_is_bit_equal(card, color_quant):
+def test_graphed_quant_macro_chunk_is_bit_equal(card, color_quant, grid):
     """``quant_train_macro_chunk`` (3 chunks of 20 QAT steps through
-    ``'auto'``) equals three ``quant_train_chunk`` calls carrying ``best``."""
+    ``'auto'``: list_t at 768x512, ``'pallas'`` + ``'top_k'`` on the odd
+    grid) equals three ``quant_train_chunk`` calls carrying ``best``."""
     from gaussianimage_plus_tpu_torch.compress import pipeline as pl
     from gaussianimage_plus_tpu_torch.train import trainer as tr
 
-    gt, cfg, tcfg, ts0 = _kodak_fit_case(card)
+    gt, cfg, tcfg, ts0 = _kodak_fit_case(card, **(ODD_HW if grid.startswith("odd") else {}))
+    assert tr.captures(cfg, card)
     ts0, _ = tr.train_chunk(ts0, gt, cfg, tcfg, 20, True, False)
     state = tr.restore_best(ts0)
     qcfg = pl.QuantConfig(color_quant=color_quant)
@@ -793,18 +806,26 @@ def test_graphed_quant_macro_chunk_is_bit_equal(card, color_quant):
     assert torch.equal(a[3]["psnr"], torch.cat(psnrs))
 
 
+# every route that renders through a kernel, so that its chunks replay as CUDA
+# graphs (train.trainer.captures): (raster_backend, bin_method, grid); the
+# default config on the odd grid resolves to 'pallas' + 'top_k'
+GRAPH_ROUTES = ([("pallas", b, {}) for b in ("top_k", "hier", "scatter", "rank", "auto", "pallas")]
+                + [(b, "auto", {}) for b in ("list", "list_t", "dense", "sweep", "auto")]
+                + [("auto", "auto", ODD_HW)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("route", sorted(CAPTURE_SET))
+@pytest.mark.parametrize("route", GRAPH_ROUTES, ids=[f"{b}-{m}" + ("-odd-grid" if g else "")
+                                                     for b, m, g in GRAPH_ROUTES])
 def test_capture_set_routes_never_sync(card, route):
-    """Each route of ``CAPTURE_SET`` runs a train chunk (re-sort, steps,
+    """Each route that ``captures`` runs a train chunk (re-sort, steps,
     prune) and a QAT chunk with the host never synchronised: under
     ``torch.cuda.set_sync_debug_mode("error")`` a sync raises."""
     from gaussianimage_plus_tpu_torch.compress import pipeline as pl
     from gaussianimage_plus_tpu_torch.train import trainer as tr
 
-    backend, binner = route
-    kw = dict(raster_backend=backend, **({} if binner is None else dict(bin_method=binner)))
-    gt, cfg, tcfg, ts = _kodak_fit_case(card, **kw)
+    backend, binner, grid = route
+    gt, cfg, tcfg, ts = _kodak_fit_case(card, **grid, raster_backend=backend, bin_method=binner)
     assert tr.captures(cfg, card)
     qcfg = pl.QuantConfig(color_quant="vq")
     ts, _ = tr.train_chunk(ts, gt, cfg, tcfg, 2, True, False)       # builds the kernels
@@ -822,6 +843,52 @@ def test_capture_set_routes_never_sync(card, route):
     finally:
         torch.cuda.set_sync_debug_mode(0)
 
+
+
+@pytest.mark.cuda
+def test_eager_routes_do_not_capture(card):
+    """The plain ``'xla'`` path and a ``render_fn`` run their chunks eagerly."""
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    cfg = gi.GaussianConfig(H=512, W=768, max_num_points=5000)
+    assert tr.captures(cfg, card)
+    assert not tr.captures(dataclasses.replace(cfg, raster_backend="xla"), card)
+    assert not tr.captures(cfg, card, gi.render)
+
+
+@pytest.mark.cuda
+def test_graphed_fit_batch_is_bit_equal(card):
+    """``fit_batch`` of two 752x496 images (the odd grid's ``'auto'``:
+    ``'pallas'`` + ``'top_k'``; 2500 -> 5000 Gaussians each, a prune every
+    50, the growth with the final fill at 100, 200 steps): each chunk of the
+    block is a replay of one captured chunk, and each image's final state,
+    the per-chunk metrics and the launch counts equal each image's
+    ``train_chunk`` loop run eagerly."""
+    from gaussianimage_plus_tpu_torch.kernels import wrappers
+    from gaussianimage_plus_tpu_torch.parallel import sharded as psh
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    gt, cfg, tcfg, _ = _kodak_fit_case(card, **ODD_HW)
+    images = torch.stack([gt, torch.flip(gt, dims=(1,))])
+    assert tr.captures(cfg, card)
+    seen = []
+    for k in wrappers():
+        k.launches = 0
+    tss = psh.fit_batch(images, cfg, tcfg, 2500, seed=50,
+                        progress=lambda it, m: seen.append({k: v.clone() for k, v in m.items()}))
+    graphed = [k.launches for k in wrappers()]
+    for k in wrappers():
+        k.launches = 0
+    for i in range(2):
+        ts = tr.init_train_state(cfg, tcfg, 2500, seed=50 + i, device=card)
+        for c, end in enumerate(range(50, 201, 50)):
+            ts, m = tr.train_chunk(ts, images[i], cfg, tcfg, 50, True, end == 100, end == 100)
+            for key in ("loss", "psnr", "n_pruned", "n_added"):
+                assert torch.equal(seen[c][key][i], m[key]), (i, end, key)
+        _assert_trees_equal(tss[i], ts, f"image {i}")
+    assert [k.launches for k in wrappers()] == graphed and graphed[3] == 400
+    assert int(sum(m["n_added"].sum() for m in seen)) > 0
 
 
 @pytest.mark.cuda

@@ -23,6 +23,9 @@
   it finishes as that loop does.
 - ``fit_image`` warns with the count when the ``'hier'`` binner drops
   candidates at its best state, and not otherwise.
+- ``captures`` for a CUDA device (no card needed): every backend that
+  launches a kernel captures, with each binner and on an odd tile grid;
+  ``'xla'`` and other plain backends, a ``render_fn`` and the CPU do not.
 """
 
 import warnings
@@ -272,3 +275,24 @@ def test_fit_image_warns_when_hier_drops():
         assert said == ([f"the 'hier' binner dropped {dropped} candidates at the fit's best "
                          f"state: its render diverged from exact binning (band budget "
                          f"max(4 tile_cap, 512) = 512)"] if warns else [])
+
+
+@pytest.mark.parametrize("grid", [(512, 768), (496, 752)], ids=["768x512", "odd-752x496"])
+def test_captures_every_kernel_route(grid):
+    """The rule needs no card: ``resolve_backend`` and ``captures`` read the
+    config and the device's type only."""
+    cuda = torch.device("cuda")
+    cfg = tgi.GaussianConfig(H=grid[0], W=grid[1], max_num_points=5000)
+    assert tgi.resolve_backend(cfg, cuda) == ("list_t" if grid[1] == 768 else "pallas")
+    assert ttr.captures(cfg, cuda) and ttr.captures(cfg, "cuda")
+    for binner in ("top_k", "hier", "scatter", "rank", "auto", "pallas"):
+        assert ttr.captures(tgi.GaussianConfig(H=grid[0], W=grid[1], raster_backend="pallas",
+                                               bin_method=binner), cuda), binner
+    for backend in ("list", "list_t", "dense", "sweep"):
+        assert ttr.captures(tgi.GaussianConfig(H=grid[0], W=grid[1], raster_backend=backend),
+                            cuda), backend
+    for backend in ("xla", "range"):
+        assert not ttr.captures(tgi.GaussianConfig(H=grid[0], W=grid[1],
+                                                   raster_backend=backend), cuda), backend
+    assert not ttr.captures(cfg, cuda, render_fn=tgi.render)
+    assert not ttr.captures(cfg, "cpu")

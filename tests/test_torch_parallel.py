@@ -23,7 +23,11 @@
 - ``fit_batch`` in one process and at 2 ranks (3 images: blocks of 2 and 1)
   ``torch.equal`` to each image's chunk schedule run alone, and within 0.05 dB
   (best PSNR) and 1% (active count) of JAX's ``fit_batch`` from the same
-  states and draws; ``fit_image_tile_sharded`` in a world of one fits.
+  states and draws; its block runner's per-chunk metrics ``torch.equal`` to
+  each image's ``train_chunk`` metrics and, before the growth, every step's
+  PSNR within 1e-3 dB of JAX's; ``batch_train_chunk`` ``torch.equal`` to
+  ``train_chunk`` per image; ``fit_image_tile_sharded`` in a world of one
+  fits.
 """
 
 import numpy as np
@@ -318,6 +322,37 @@ def test_fit_batch_single_process_and_two_ranks(ranks, batch):
         n_j = int(tss_j.gaussians.num_active[i])
         assert n_j > n and abs(int(ts.gaussians.num_active) - n_j) <= 0.01 * n_j
         assert abs(float(ts.best_psnr) - float(tss_j.best_psnr[i])) <= 0.05
+
+
+def test_fit_batch_block_runner_equals_per_image_loop(batch):
+    """On the CPU the block runner runs each chunk of the whole block
+    eagerly: the metrics it hands ``progress`` ([B, steps] and [B]) equal
+    each image's ``train_chunk`` metrics, and the first chunk's PSNRs (before
+    the growth) JAX's ``fit_batch`` progress within 1e-3 dB at every step.
+    ``batch_train_chunk`` equals ``train_chunk`` image by image."""
+    images, cfg, tcfg, n, states, draws = batch
+    seen, seen_j = [], []
+    tss = tsh.fit_batch(images, cfg, tcfg, n, states=states, grow_draws=[[d] for d in draws],
+                        progress=lambda it, m: seen.append(m))
+    for i in range(len(images)):
+        ts = states[i]
+        for c, end in enumerate((50, 100)):
+            ts, m = ttr.train_chunk(ts, images[i], cfg, tcfg, 50, True, end == 50, end == 50,
+                                    draws[i] if end == 50 else None)
+            for key in ("loss", "psnr", "n_pruned", "n_added"):
+                assert torch.equal(seen[c][key][i], m[key]), (i, end, key)
+        assert_train_states_equal(tss[i], ts)
+    assert int(seen[0]["n_added"].sum()) > 0
+    cfg_j, _ = configs(32, 64)
+    jsh.fit_batch(jnp.asarray(images.numpy()), cfg_j, jtr.TrainConfig(**TC), n, seed=1,
+                  progress=lambda it, m: seen_j.append(np.asarray(m["psnr"])))
+    np.testing.assert_allclose(seen[0]["psnr"].numpy(), seen_j[0], rtol=0, atol=1e-3)
+    out, m = tsh.batch_train_chunk(states[:2], images[:2], cfg, tcfg, 20, True, True, True,
+                                   draws[:2])
+    for i in range(2):
+        ref, mi = ttr.train_chunk(states[i], images[i], cfg, tcfg, 20, True, True, True, draws[i])
+        assert_train_states_equal(out[i], ref)
+        assert all(torch.equal(m[k][i], mi[k]) for k in mi)
 
 
 def test_fit_batch_default_init_and_batch_helpers():
