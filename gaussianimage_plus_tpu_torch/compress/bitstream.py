@@ -30,6 +30,7 @@ from ..core.precision import resolve_device
 from .entropy import (compress_categorical, compress_gaussian, decode_rans,
                       decompress_gaussian, gaussian_counts)
 from ..models.gaussian_image import GaussianConfig
+from ..utils.profiling import count, span
 from .pipeline import Encoding, QuantConfig, QuantizerBundle, decompress_wo_ec
 from .quantizers import HybridQuantParams, LogQuantState, UniformQuantParams
 from .residual_vq import ResidualVQState, VQCodebook
@@ -215,87 +216,89 @@ def serialize_bitstream(bundle: QuantizerBundle, enc: Encoding, cfg,
 def deserialize_bitstream(data: bytes, device=None) -> DecodedBitstream:
     """Bytes -> (Encoding, grids, qcfg, H, W, bound, actual bpp) with the
     tensors on ``device`` (default: the card)."""
-    dev = resolve_device(device)
-    if data[:4] != MAGIC:
-        raise ValueError("not a GIPB bitstream")
-    _check(len(data) >= 4 + _struct.calcsize(_HEADER), "truncated header")
-    (version, _param, xy_mode, color_mode, xy_bit, cov_bit, color_bit,
-     H, W, n, decode_cap) = _struct.unpack_from(_HEADER, data, 4)
-    if version not in (1, VERSION):
-        raise ValueError(f"unsupported bitstream version {version}")
-    _check(xy_mode in _XY_MODES.values() and color_mode in _COLOR_MODES.values(),
-           "unknown quantizer mode")
-    off = 4 + _struct.calcsize(_HEADER)
+    with span("decode.parse"):
+        dev = resolve_device(device)
+        if data[:4] != MAGIC:
+            raise ValueError("not a GIPB bitstream")
+        _check(len(data) >= 4 + _struct.calcsize(_HEADER), "truncated header")
+        (version, _param, xy_mode, color_mode, xy_bit, cov_bit, color_bit,
+         H, W, n, decode_cap) = _struct.unpack_from(_HEADER, data, 4)
+        if version not in (1, VERSION):
+            raise ValueError(f"unsupported bitstream version {version}")
+        _check(xy_mode in _XY_MODES.values() and color_mode in _COLOR_MODES.values(),
+               "unknown quantizer mode")
+        off = 4 + _struct.calcsize(_HEADER)
 
-    def tensor(a):
-        return torch.as_tensor(a).to(dev)
+        def tensor(a):
+            count("decode.uploads")
+            return torch.as_tensor(a).to(dev)
 
-    def f32(count):
-        nonlocal off
-        _check(off + count * 4 <= len(data), "truncated grids")
-        a = np.frombuffer(data, np.float32, count, off).copy()
-        off += count * 4
-        return tensor(a)
+        def f32(size):
+            nonlocal off
+            _check(off + size * 4 <= len(data), "truncated grids")
+            a = np.frombuffer(data, np.float32, size, off).copy()
+            off += size * 4
+            return tensor(a)
 
-    xy_quant = {v: k for k, v in _XY_MODES.items()}[xy_mode]
-    color_quant = {v: k for k, v in _COLOR_MODES.items()}[color_mode]
-    if xy_quant != "fp16":
-        xy_params = UniformQuantParams(scale=f32(2), beta=f32(2))
-    else:
-        xy_params = UniformQuantParams(scale=tensor(np.ones(2, np.float32)),
-                                       beta=tensor(np.zeros(2, np.float32)))
-    log_state = LogQuantState(beta=f32(1)[0], scale=f32(1)[0])
-    cov_params = HybridQuantParams(cov=UniformQuantParams(scale=f32(1), beta=f32(1)))
-    color_vq = None
-    if color_quant == "vq":
-        _check(off + 6 <= len(data), "truncated codebook header")
-        n_layers, K, D = _struct.unpack_from("<HHH", data, off)
-        off += 6
-        layers = []
-        for _ in range(n_layers):
-            embed = f32(K * D).reshape(K, D)
-            layers.append(VQCodebook(embed=embed, cluster_size=embed.new_zeros((K,)),
-                                     embed_avg=embed))
-        color_vq = ResidualVQState(layers=tuple(layers))
-        color_params = UniformQuantParams(scale=tensor(np.ones(3, np.float32)),
-                                          beta=tensor(np.zeros(3, np.float32)))
-        n_color_cols = n_layers
-    else:
-        color_params = UniformQuantParams(scale=f32(3), beta=f32(3))
-        n_color_cols = 3
+        xy_quant = {v: k for k, v in _XY_MODES.items()}[xy_mode]
+        color_quant = {v: k for k, v in _COLOR_MODES.items()}[color_mode]
+        if xy_quant != "fp16":
+            xy_params = UniformQuantParams(scale=f32(2), beta=f32(2))
+        else:
+            xy_params = UniformQuantParams(scale=tensor(np.ones(2, np.float32)),
+                                           beta=tensor(np.zeros(2, np.float32)))
+        log_state = LogQuantState(beta=f32(1)[0], scale=f32(1)[0])
+        cov_params = HybridQuantParams(cov=UniformQuantParams(scale=f32(1), beta=f32(1)))
+        color_vq = None
+        if color_quant == "vq":
+            _check(off + 6 <= len(data), "truncated codebook header")
+            n_layers, K, D = _struct.unpack_from("<HHH", data, off)
+            off += 6
+            layers = []
+            for _ in range(n_layers):
+                embed = f32(K * D).reshape(K, D)
+                layers.append(VQCodebook(embed=embed, cluster_size=embed.new_zeros((K,)),
+                                         embed_avg=embed))
+            color_vq = ResidualVQState(layers=tuple(layers))
+            color_params = UniformQuantParams(scale=tensor(np.ones(3, np.float32)),
+                                              beta=tensor(np.zeros(3, np.float32)))
+            n_color_cols = n_layers
+        else:
+            color_params = UniformQuantParams(scale=f32(3), beta=f32(3))
+            n_color_cols = 3
 
-    if xy_quant == "fp16":
-        _check(off + n * 4 <= len(data), "truncated fp16 xy")
-        xy_codes = np.frombuffer(data, np.float16, n * 2, off).astype(np.float32).reshape(n, 2)
-        off += n * 2 * 2
-    else:
-        flat, off = _unpack_bits(data, off, n * 2, xy_bit)
-        xy_codes = flat.astype(np.float32).reshape(n, 2)
-    cov_flat, off = _unpack_stream(data, off, version)
-    _check(cov_flat.size == n * 3, "covariance stream length")
-    cov_codes = cov_flat.astype(np.float32).reshape(n, 3)
-    col_flat, off = _unpack_stream(data, off, version)
-    _check(col_flat.size == n * n_color_cols, "colour stream length")
-    color_codes = col_flat.reshape(n, n_color_cols)
-    color_codes = (color_codes.astype(np.int32) if color_quant == "vq"
-                   else color_codes.astype(np.float32))
+        if xy_quant == "fp16":
+            _check(off + n * 4 <= len(data), "truncated fp16 xy")
+            xy_codes = np.frombuffer(data, np.float16, n * 2, off).astype(np.float32).reshape(n, 2)
+            off += n * 2 * 2
+        else:
+            flat, off = _unpack_bits(data, off, n * 2, xy_bit)
+            xy_codes = flat.astype(np.float32).reshape(n, 2)
+        cov_flat, off = _unpack_stream(data, off, version)
+        _check(cov_flat.size == n * 3, "covariance stream length")
+        cov_codes = cov_flat.astype(np.float32).reshape(n, 3)
+        col_flat, off = _unpack_stream(data, off, version)
+        _check(col_flat.size == n * n_color_cols, "colour stream length")
+        color_codes = col_flat.reshape(n, n_color_cols)
+        color_codes = (color_codes.astype(np.int32) if color_quant == "vq"
+                       else color_codes.astype(np.float32))
 
-    M = max(8, -(-n // 8) * 8)   # pad with invalid rows, as the JAX decoder does
+        M = max(8, -(-n // 8) * 8)   # pad with invalid rows, as the JAX decoder does
 
-    def pad(a):
-        return tensor(np.concatenate([a, np.zeros((M - n,) + a.shape[1:], a.dtype)], axis=0))
+        def pad(a):
+            return tensor(np.concatenate([a, np.zeros((M - n,) + a.shape[1:], a.dtype)], axis=0))
 
-    enc = Encoding(means=pad(xy_codes), quant_means=pad(xy_codes),
-                   quant_cov=pad(cov_codes), color_codes=pad(color_codes),
-                   log_state=log_state, active=tensor(np.arange(M) < n),
-                   num_active=tensor(np.asarray(n, np.int32)))
-    bundle = QuantizerBundle(xy=xy_params, cov=cov_params, color=color_params,
-                             color_vq=color_vq)
-    qcfg = QuantConfig(xy_bit=xy_bit, cov_bit=cov_bit, color_bit=color_bit,
-                       xy_quant=xy_quant, color_quant=color_quant, decode_cap=decode_cap)
-    bound = torch.zeros((M, 3), dtype=torch.float32, device=dev)
-    return DecodedBitstream(enc=enc, bundle=bundle, qcfg=qcfg, H=H, W=W,
-                            bound=bound, bpp=len(data) * 8.0 / (H * W))
+        enc = Encoding(means=pad(xy_codes), quant_means=pad(xy_codes),
+                       quant_cov=pad(cov_codes), color_codes=pad(color_codes),
+                       log_state=log_state, active=tensor(np.arange(M) < n),
+                       num_active=tensor(np.asarray(n, np.int32)))
+        bundle = QuantizerBundle(xy=xy_params, cov=cov_params, color=color_params,
+                                 color_vq=color_vq)
+        qcfg = QuantConfig(xy_bit=xy_bit, cov_bit=cov_bit, color_bit=color_bit,
+                           xy_quant=xy_quant, color_quant=color_quant, decode_cap=decode_cap)
+        bound = torch.zeros((M, 3), dtype=torch.float32, device=dev)
+        return DecodedBitstream(enc=enc, bundle=bundle, qcfg=qcfg, H=H, W=W,
+                                bound=bound, bpp=len(data) * 8.0 / (H * W))
 
 
 def decode_bitstream(data: bytes, cfg=None, backend=None, device=None):
@@ -305,12 +308,13 @@ def decode_bitstream(data: bytes, cfg=None, backend=None, device=None):
     from the stream); ``backend`` forwards to ``decompress_wo_ec``
     (``'binned'`` default, or ``'list'``/``'list_t'``); ``device`` defaults
     to the card."""
-    dec = deserialize_bitstream(data, device=device)
-    M = dec.enc.active.shape[0]
-    if cfg is None:
-        cfg = GaussianConfig(H=dec.H, W=dec.W, max_num_points=M,
-                             tile_cap=dec.qcfg.decode_cap or 256)
-    else:
-        cfg = dataclasses.replace(cfg, H=dec.H, W=dec.W, max_num_points=M)
-    img = decompress_wo_ec(dec.bundle, dec.enc, dec.bound, cfg, dec.qcfg, backend=backend)
-    return img, dec
+    with span("decode"):
+        dec = deserialize_bitstream(data, device=device)
+        M = dec.enc.active.shape[0]
+        if cfg is None:
+            cfg = GaussianConfig(H=dec.H, W=dec.W, max_num_points=M,
+                                 tile_cap=dec.qcfg.decode_cap or 256)
+        else:
+            cfg = dataclasses.replace(cfg, H=dec.H, W=dec.W, max_num_points=M)
+        img = decompress_wo_ec(dec.bundle, dec.enc, dec.bound, cfg, dec.qcfg, backend=backend)
+        return img, dec

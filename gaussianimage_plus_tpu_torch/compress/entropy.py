@@ -23,6 +23,8 @@ from typing import Tuple
 
 import numpy as np
 
+from ..utils.profiling import span
+
 _SRC = Path(__file__).resolve().parent.parent / "native" / "rans.cpp"
 _BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "torch_native"
 _FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
@@ -94,9 +96,10 @@ def decode_rans(words: np.ndarray, counts: np.ndarray, n: int) -> np.ndarray:
     ws = np.ascontiguousarray(words, dtype=np.uint16)
     cts = np.ascontiguousarray(counts, dtype=np.uint32)
     out = np.empty(n, dtype=np.int32)
-    rc = _lib().rans_decode(_ptr(ws, ctypes.c_uint16), ws.size,
-                            _ptr(cts, ctypes.c_uint32), cts.size,
-                            _ptr(out, ctypes.c_int32), n)
+    with span("decode.entropy"):
+        rc = _lib().rans_decode(_ptr(ws, ctypes.c_uint16), ws.size,
+                                _ptr(cts, ctypes.c_uint32), cts.size,
+                                _ptr(out, ctypes.c_int32), n)
     if rc != 0:
         raise ValueError("rans_decode failed")
     return out

@@ -44,6 +44,7 @@ from ..train.losses import loss_fn
 from ..train.metrics import psnr as psnr_fn
 from ..train.optim import Adam, AdamState, make_adam, step_lr
 from ..train.trainer import ChunkRunner, captures
+from ..utils.profiling import span
 from .quantizers import (HybridQuantParams, LogQuantState, UniformQuantParams,
                          _exp, _log, clip, fake_quantize_half, hybrid_size,
                          log_decompress, ste_round, uniform_decompress,
@@ -402,7 +403,8 @@ def _decode_attributes(bundle: QuantizerBundle, enc: Encoding, qcfg: QuantConfig
 
 
 def _decoded_state(bundle, enc, bound, qcfg):
-    means, cov, colors = _decode_attributes(bundle, enc, qcfg)
+    with span("decode.dequantize"):
+        means, cov, colors = _decode_attributes(bundle, enc, qcfg)
     state = GaussianState(
         params=GaussianParams(xyz=means, cov2d=cov, features=colors),
         active=enc.active, bound=bound, num_active=enc.num_active)
@@ -439,12 +441,13 @@ def decompress_wo_ec(bundle: QuantizerBundle, enc: Encoding, bound: torch.Tensor
     the port renders it cap-free on every device."""
     state, over = _decoded_state(bundle, enc, bound, qcfg)
     backend = backend or "binned"
-    if backend in ("list", "list_t", "dense", "sweep", "range"):
-        sweep = {"dense": False, "sweep": True}.get(backend, backend)
-        return render_fast(state, cfg, sweep=sweep, **over)
-    if backend != "binned":
-        raise ValueError(f"unknown decode backend {backend!r}")
-    return render(state, _binned_config(cfg, qcfg, enc.active.device), **over)
+    with span("decode.render"):
+        if backend in ("list", "list_t", "dense", "sweep", "range"):
+            sweep = {"dense": False, "sweep": True}.get(backend, backend)
+            return render_fast(state, cfg, sweep=sweep, **over)
+        if backend != "binned":
+            raise ValueError(f"unknown decode backend {backend!r}")
+        return render(state, _binned_config(cfg, qcfg, enc.active.device), **over)
 
 
 def prepare_decode(bundle: QuantizerBundle, enc: Encoding, bound: torch.Tensor,

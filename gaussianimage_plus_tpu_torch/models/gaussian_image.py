@@ -33,6 +33,7 @@ colours start at zero, so every pixel is exactly 0.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import NamedTuple, Optional
@@ -52,6 +53,7 @@ from ..kernels.raster_dense import (rasterize_dense, rasterize_dense_pallas,
                                     rasterize_range_pallas, rasterize_sweep,
                                     rasterize_sweep_pallas)
 from ..kernels.raster_list import TB_T, rasterize_list, rasterize_list_t
+from ..utils.profiling import span
 
 _CAP_FREE = {"dense": rasterize_dense, "sweep": rasterize_sweep}
 
@@ -225,13 +227,15 @@ def render(state: GaussianState, cfg: GaussianConfig,
     if backend in _CAP_FREE:
         return _clip01(_CAP_FREE[backend](proj.xys, proj.conics, colors, opacity,
                                           proj.radii, proj.valid, cfg.H, cfg.W))
-    if cfg.bin_method == "pallas":
-        bins = bin_gaussians_tiles(proj, cfg.H, cfg.W, cap=cfg.tile_cap,
-                                   block_h=cfg.block_h, block_w=cfg.block_w)
-    else:
-        bins = bin_gaussians(proj, cfg.H, cfg.W, cap=cfg.tile_cap,
-                             block_h=cfg.block_h, block_w=cfg.block_w,
-                             method=cfg.bin_method)
+    # a span of a forward-only render (a decode, an evaluation); none inside a training step
+    with contextlib.nullcontext() if proj.xys.requires_grad else span("render.bin"):
+        if cfg.bin_method == "pallas":
+            bins = bin_gaussians_tiles(proj, cfg.H, cfg.W, cap=cfg.tile_cap,
+                                       block_h=cfg.block_h, block_w=cfg.block_w)
+        else:
+            bins = bin_gaussians(proj, cfg.H, cfg.W, cap=cfg.tile_cap,
+                                 block_h=cfg.block_h, block_w=cfg.block_w,
+                                 method=cfg.bin_method)
     if backend == "pallas":
         img = rasterize_binned(proj.xys, proj.conics, colors, opacity,
                                bins.ids, bins.mask, proj.radii, cfg.H, cfg.W)

@@ -78,6 +78,7 @@ from .losses import loss_fn, ms_ssim
 from .metrics import psnr as psnr_fn
 from .optim import (Adam, AdamState, Adan, AdanState, adan, make_adam, step_lr, take_rows,
                     zero_rows)
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,10 +203,11 @@ def _morton_resort(ts: TrainState, cfg: GaussianConfig) -> TrainState:
 
 
 def _grow_ts(ts: TrainState, gt, cfg, tcfg, last_img, final_fill, draws=None):
-    gs, n_added, new_mask = grow(ts.gaussians, cfg, last_img, gt, ts.generator,
-                                 final_fill=final_fill, base_num_samples=tcfg.base_num_samples,
-                                 draws=draws)
-    return ts._replace(gaussians=gs, opt_state=zero_rows(ts.opt_state, new_mask)), n_added
+    with span("fit.grow"):
+        gs, n_added, new_mask = grow(ts.gaussians, cfg, last_img, gt, ts.generator,
+                                     final_fill=final_fill,
+                                     base_num_samples=tcfg.base_num_samples, draws=draws)
+        return ts._replace(gaussians=gs, opt_state=zero_rows(ts.opt_state, new_mask)), n_added
 
 
 def _train_chunk(ts: TrainState, gt: torch.Tensor, cfg: GaussianConfig, tcfg: TrainConfig,
@@ -377,7 +379,7 @@ class ChunkRunner:
             dev = _tensors(carry)[0].device
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
+            with span("fit.warm_chunk"), torch.cuda.stream(side):
                 if self.warm_on_clone:
                     self.fn(_clone(carry))
                 else:
@@ -389,7 +391,8 @@ class ChunkRunner:
         hist = [torch.stack(o) for o in zip(*eager)] if eager else None
         if left:
             if self.graph is None:
-                self.graph = ChunkGraph(self.fn, carry)
+                with span("fit.capture"):
+                    self.graph = ChunkGraph(self.fn, carry)
             g = self.graph
             g.load(carry)
             rows = [torch.empty((left,) + o.shape, dtype=o.dtype, device=o.device)
@@ -507,90 +510,91 @@ def fit_image(gt, cfg: GaussianConfig, tcfg: TrainConfig, num_points: int,
     ``stop_after_iter`` checkpoint, resume and stop early (module
     docstring); ``render_fn`` replaces the render of every step. Resuming a completed run returns its best state with an
     empty history and ``train_time`` 0."""
-    chunk = tcfg.prune_iter
-    if tcfg.iterations % chunk:
-        raise ValueError("iterations must divide by prune_iter")
-    dev = gaussians.active.device if gaussians is not None else resolve_device(device)
-    ts = init_train_state(cfg, tcfg, num_points, seed, gaussians=gaussians, device=dev)
-    gt = torch.as_tensor(np.asarray(gt) if not isinstance(gt, torch.Tensor) else gt,
-                         dtype=torch.float32).to(dev)
-    draws = iter(grow_draws) if grow_draws is not None else None
-    history = {"loss": [], "psnr": [], "n_pruned": [], "n_added": [], "num_active": []}
-    say = logger.write if logger is not None else print
+    with span("fit"):
+        chunk = tcfg.prune_iter
+        if tcfg.iterations % chunk:
+            raise ValueError("iterations must divide by prune_iter")
+        dev = gaussians.active.device if gaussians is not None else resolve_device(device)
+        ts = init_train_state(cfg, tcfg, num_points, seed, gaussians=gaussians, device=dev)
+        gt = torch.as_tensor(np.asarray(gt) if not isinstance(gt, torch.Tensor) else gt,
+                             dtype=torch.float32).to(dev)
+        draws = iter(grow_draws) if grow_draws is not None else None
+        history = {"loss": [], "psnr": [], "n_pruned": [], "n_added": [], "num_active": []}
+        say = logger.write if logger is not None else print
 
-    ckpt_path, start = None, 0
-    if checkpoint_dir is not None:
-        from ..utils.checkpoint import load_checkpoint, save_checkpoint
-        ckpt_path = os.path.join(checkpoint_dir, "fit_ckpt")
-        if resume and os.path.exists(ckpt_path):
-            ts, extra = load_checkpoint(ckpt_path, dev)
-            start = int(extra["next_iter"])
-            if log_every:
-                say(f"resumed at iter {start}")
-            if start >= tcfg.iterations:
-                # a completed run (the final checkpoint has next_iter ==
-                # iterations): a retried sweep returns its best state
-                empty = torch.zeros((0,), device=dev)
-                return FitResult(state=restore_best(ts), best_psnr=float(ts.best_psnr),
-                                 best_iter=int(ts.best_iter), train_time=0.0,
-                                 history={k: empty for k in history})
-            if start % chunk:
-                raise ValueError(
-                    f"checkpointed next_iter={start} does not lie on the current schedule "
-                    f"(chunks of prune_iter={tcfg.prune_iter}; grow_iter={tcfg.grow_iter}, "
-                    f"iterations={tcfg.iterations}). The checkpoint was written under "
-                    f"different settings: resume with the run's original settings, or "
-                    f"delete the checkpoint to restart.")
-            want = AdanState if tcfg.opt_type == "adan" else AdamState
-            if not isinstance(ts.opt_state, want) or ts.generator is None:
-                raise ValueError(f"{ckpt_path}: its optimizer state or generator does not "
-                                 f"fit opt_type={tcfg.opt_type!r} on {dev}")
+        ckpt_path, start = None, 0
+        if checkpoint_dir is not None:
+            from ..utils.checkpoint import load_checkpoint, save_checkpoint
+            ckpt_path = os.path.join(checkpoint_dir, "fit_ckpt")
+            if resume and os.path.exists(ckpt_path):
+                ts, extra = load_checkpoint(ckpt_path, dev)
+                start = int(extra["next_iter"])
+                if log_every:
+                    say(f"resumed at iter {start}")
+                if start >= tcfg.iterations:
+                    # a completed run (the final checkpoint has next_iter ==
+                    # iterations): a retried sweep returns its best state
+                    empty = torch.zeros((0,), device=dev)
+                    return FitResult(state=restore_best(ts), best_psnr=float(ts.best_psnr),
+                                     best_iter=int(ts.best_iter), train_time=0.0,
+                                     history={k: empty for k in history})
+                if start % chunk:
+                    raise ValueError(
+                        f"checkpointed next_iter={start} does not lie on the current schedule "
+                        f"(chunks of prune_iter={tcfg.prune_iter}; grow_iter={tcfg.grow_iter}, "
+                        f"iterations={tcfg.iterations}). The checkpoint was written under "
+                        f"different settings: resume with the run's original settings, or "
+                        f"delete the checkpoint to restart.")
+                want = AdanState if tcfg.opt_type == "adan" else AdamState
+                if not isinstance(ts.opt_state, want) or ts.generator is None:
+                    raise ValueError(f"{ckpt_path}: its optimizer state or generator does not "
+                                     f"fit opt_type={tcfg.opt_type!r} on {dev}")
 
-    last = tcfg.iterations
-    if stop_after_iter is not None:
-        last = min(last, max(start + chunk, -(-stop_after_iter // chunk) * chunk))
+        last = tcfg.iterations
+        if stop_after_iter is not None:
+            last = min(last, max(start + chunk, -(-stop_after_iter // chunk) * chunk))
 
-    def cut(e: int) -> bool:
-        return bool(e == last or (tcfg.adaptive_add and e % tcfg.grow_iter == 0)
-                    or (ckpt_path and e % checkpoint_every == 0)
-                    or (log_every and e % log_every == 0))
+        def cut(e: int) -> bool:
+            return bool(e == last or (tcfg.adaptive_add and e % tcfg.grow_iter == 0)
+                        or (ckpt_path and e % checkpoint_every == 0)
+                        or (log_every and e % log_every == 0))
 
-    ends = [e for e in range(start + chunk, last + 1, chunk) if cut(e)]
-    runner = _fit_runner(gt, cfg, tcfg, chunk, tcfg.prune, render_fn)
-    t0 = time.perf_counter()
-    end = start
-    for begin, end in zip([start] + ends[:-1], ends):
-        do_grow = tcfg.adaptive_add and end % tcfg.grow_iter == 0 and end < tcfg.iterations
-        final_fill = end == tcfg.iterations - tcfg.grow_iter
-        n = (end - begin) // chunk
-        ts, m = _macro(runner, ts, gt, cfg, tcfg, n, do_grow, final_fill,
-                       next(draws) if (do_grow and draws is not None) else None)
-        history["loss"].append(m["loss"])
-        history["psnr"].append(m["psnr"])
-        history["n_pruned"].append(m["chunk_n_pruned"])
-        history["n_added"].append(torch.cat([torch.zeros((n - 1,), dtype=torch.int32,
-                                                         device=dev), m["n_added"][None]]))
-        history["num_active"].append(m["chunk_num_active"])
-        if log_every and end % log_every == 0:
-            say(f"iter {end}: psnr {float(m['psnr'][-1]):.4f} best {float(ts.best_psnr):.4f} "
-                f"n {int(ts.gaussians.num_active)}")
-        stopping = stop_after_iter is not None and end >= stop_after_iter
-        if ckpt_path and (end % checkpoint_every == 0 or stopping) and end < tcfg.iterations:
+        ends = [e for e in range(start + chunk, last + 1, chunk) if cut(e)]
+        runner = _fit_runner(gt, cfg, tcfg, chunk, tcfg.prune, render_fn)
+        t0 = time.perf_counter()
+        end = start
+        for begin, end in zip([start] + ends[:-1], ends):
+            do_grow = tcfg.adaptive_add and end % tcfg.grow_iter == 0 and end < tcfg.iterations
+            final_fill = end == tcfg.iterations - tcfg.grow_iter
+            n = (end - begin) // chunk
+            ts, m = _macro(runner, ts, gt, cfg, tcfg, n, do_grow, final_fill,
+                           next(draws) if (do_grow and draws is not None) else None)
+            history["loss"].append(m["loss"])
+            history["psnr"].append(m["psnr"])
+            history["n_pruned"].append(m["chunk_n_pruned"])
+            history["n_added"].append(torch.cat([torch.zeros((n - 1,), dtype=torch.int32,
+                                                             device=dev), m["n_added"][None]]))
+            history["num_active"].append(m["chunk_num_active"])
+            if log_every and end % log_every == 0:
+                say(f"iter {end}: psnr {float(m['psnr'][-1]):.4f} best {float(ts.best_psnr):.4f} "
+                    f"n {int(ts.gaussians.num_active)}")
+            stopping = stop_after_iter is not None and end >= stop_after_iter
+            if ckpt_path and (end % checkpoint_every == 0 or stopping) and end < tcfg.iterations:
+                save_checkpoint(ckpt_path, ts, extra={"next_iter": end})
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        train_time = time.perf_counter() - t0
+        if ckpt_path and end == tcfg.iterations:
+            # the final checkpoint: warm starts and evaluations read the whole
+            # schedule's best, not the last periodic snapshot
             save_checkpoint(ckpt_path, ts, extra={"next_iter": end})
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    train_time = time.perf_counter() - t0
-    if ckpt_path and end == tcfg.iterations:
-        # the final checkpoint: warm starts and evaluations read the whole
-        # schedule's best, not the last periodic snapshot
-        save_checkpoint(ckpt_path, ts, extra={"next_iter": end})
-    best = restore_best(ts)
-    if render_fn is None:
-        _warn_hier_drops(best, cfg)
-    return FitResult(state=best, best_psnr=float(ts.best_psnr),
-                     best_iter=int(ts.best_iter), train_time=train_time,
-                     history={k: torch.cat(v) if v else torch.zeros((0,), device=dev)
-                              for k, v in history.items()})
+        best = restore_best(ts)
+        if render_fn is None:
+            _warn_hier_drops(best, cfg)
+        return FitResult(state=best, best_psnr=float(ts.best_psnr),
+                         best_iter=int(ts.best_iter), train_time=train_time,
+                         history={k: torch.cat(v) if v else torch.zeros((0,), device=dev)
+                                  for k, v in history.items()})
 
 
 def seconds_per_call(fn, n: int, device) -> float:

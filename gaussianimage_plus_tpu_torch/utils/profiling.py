@@ -1,109 +1,207 @@
-"""Timing brackets and a profiler trace.
+"""The port's tracing: spans and counters where the work happens, and a
+profiler trace.
 
-Port of ``gaussianimage_plus_tpu/utils/profiling.py`` (``sync``, ``Timer``,
-``time_fn``, ``trace``); the reference brackets its training and its
-100-render FPS loops with ``torch.cuda.synchronize`` (train.py:126-155,
-:183-187). On the card ``sync`` is ``torch.cuda.synchronize`` on the
-tensor's device and ``time_fn`` times with CUDA events; on the CPU work
-is done when the call returns, so ``sync`` does nothing and ``time_fn``
-reads the host clock. ``trace`` writes a Chrome trace with
-``torch.profiler`` (device activity included when there is a card).
+- ``span(name)`` brackets a stretch of host work. While recording is on it
+  stores a ``Span``: its name, its id, the id of the span open around it
+  (its parent, 0 for none) and of the outermost one (its root: every span of
+  one decode request or one fit job shares the root's id), and its start and
+  end in ``time.time_ns()``, the clock of the torch profiler's events. The
+  spans sit in a ring of ``RING`` entries that drops its oldest past that
+  and counts the drops.
+- ``count(name, n)`` adds to a host integer counter while recording is on.
+- Recording is on while a torch profiler records, and inside
+  ``recording()``, which needs no profiler. Whether a span records is
+  decided when it opens. Off, a span costs a flag check and a shared null
+  context, and records and allocates nothing.
+- While a profiler records, a span also opens a profiler range of its name,
+  so that it shows in the trace beside the device's operations. The range is
+  function-scoped (``torch._C._profiler._RecordFunctionFast``): a
+  ``torch.profiler.record_function`` range is user-scoped, and the profiler
+  mirrors those on the device's timeline as device intervals, which a
+  reader of device busy time would count as device work.
+- A span never synchronises with the device and never launches device work,
+  so spans may open while a CUDA graph is being captured.
+- ``spans()``, ``counters()`` and ``dropped()`` return copies for readers;
+  ``reset()`` empties the registry.
+- ``trace(log_dir)`` writes a Chrome trace with ``torch.profiler`` (device
+  activity included when there is a card): the program's spans are ranges
+  in it, and its ``launches`` entry holds each kernel wrapper's launches in
+  the block.
+
+The spans and counters the port records (where, and what reads them:
+``PERF.md`` section 3):
+
+- ``decode``: ``compress.bitstream.decode_bitstream``, the root of a decode;
+- ``decode.parse``: ``deserialize_bitstream``, whole;
+- ``decode.entropy``: ``compress.entropy.decode_rans``, each rANS decode;
+- counter ``decode.uploads``: tensors ``deserialize_bitstream`` makes from
+  host arrays, one host-to-device copy each on the card;
+- ``decode.dequantize`` and ``decode.render``: ``compress.pipeline
+  .decompress_wo_ec``, its dequantization and its render;
+- ``render.bin``: the binning in ``models.gaussian_image.render`` when no
+  gradient flows through the render (a decode, an evaluation; no training
+  step);
+- ``fit``: ``train.trainer.fit_image``, whole, the root of a fit;
+- ``fit.warm_chunk`` and ``fit.capture``: ``ChunkRunner.run``'s eager chunk
+  before the capture and its ``ChunkGraph`` construction;
+- ``fit.grow``: ``train.trainer._grow_ts``, a growth.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import json
 import os
+import threading
 import time
-from typing import Callable, Optional
+from collections import deque
+from typing import Deque, Dict, List, NamedTuple
 
 import torch
 
+RING = 1 << 16
 
-def _first_tensor(tree) -> Optional[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
-        return tree
-    items = tree.values() if isinstance(tree, dict) else (
-        tree if isinstance(tree, (tuple, list)) else ())
-    for x in items:
-        t = _first_tensor(x)
-        if t is not None:
-            return t
-    return None
+_profiling = torch._C._autograd._profiler_enabled
+_range = torch._C._profiler._RecordFunctionFast
+_NULL = contextlib.nullcontext()
 
 
-def sync(tree) -> None:
-    """Wait for the device of the first tensor in ``tree`` (a tensor, or
-    tuples, lists, dicts and NamedTuples of them)."""
-    t = _first_tensor(tree)
-    if t is not None and t.device.type == "cuda":
-        torch.cuda.synchronize(t.device)
+class Span(NamedTuple):
+    name: str
+    id: int
+    parent: int
+    root: int
+    start_ns: int
+    end_ns: int
 
 
-class Timer:
-    """Wall-clock bracket that waits for the device on exit.
+class _Registry:
+    def __init__(self):
+        self.lock = threading.Lock()
+        # plain tuples of a str and ints, which the garbage collector stops
+        # tracking, unlike a NamedTuple's instances; ``spans()`` makes ``Span``s
+        self.ring: Deque[tuple] = deque(maxlen=RING)
+        self.dropped = 0
+        self.counters: Dict[str, int] = {}
+        self.forced = 0
+        self.ids = itertools.count(1)
+        self.local = threading.local()
 
-    >>> with Timer() as t:
-    ...     out = step(state)
-    ...     t.sync_on(out)
-    >>> t.elapsed
-    """
+    def open(self) -> list:
+        """This thread's stack of open recording spans."""
+        stack = getattr(self.local, "stack", None)
+        if stack is None:
+            stack = self.local.stack = []
+        return stack
+
+    def add(self, s: tuple) -> None:
+        with self.lock:
+            if len(self.ring) == RING:
+                self.dropped += 1
+            self.ring.append(s)
+
+
+_REG = _Registry()
+
+
+class _Span:
+    __slots__ = ("name", "id", "parent", "root", "range", "start")
+
+    def __init__(self, name: str):
+        self.name = name
 
     def __enter__(self):
-        self._tree = None
-        self.elapsed = None
-        self.t0 = time.perf_counter()
+        stack = _REG.open()
+        self.id = next(_REG.ids)
+        self.parent, self.root = (stack[-1].id, stack[-1].root) if stack else (0, self.id)
+        self.range = _range(self.name) if _profiling() else None
+        if self.range is not None:
+            self.range.__enter__()
+        stack.append(self)
+        self.start = time.time_ns()
         return self
 
-    def sync_on(self, tree) -> None:
-        self._tree = tree
-
     def __exit__(self, *exc):
-        if self._tree is not None:
-            sync(self._tree)
-        self.elapsed = time.perf_counter() - self.t0
+        end = time.time_ns()
+        _REG.open().pop()
+        if self.range is not None:
+            self.range.__exit__(None, None, None)
+        _REG.add((self.name, self.id, self.parent, self.root, self.start, end))
         return False
 
 
-def time_fn(f: Callable, *args, iters: int = 100, warmup: int = 1,
-            chain: bool = False) -> float:
-    """Seconds per call of ``f(*args)`` over ``iters`` calls after
-    ``warmup`` calls: CUDA events around the calls when ``f`` returns card
-    tensors, else the host clock. ``chain=True`` passes each call's output
-    as the next call's first argument."""
-    out = None
-    for _ in range(max(warmup, 1)):
-        out = f(*args)
-    sync(out)
-    t = _first_tensor(out)
-    on_card = t is not None and t.device.type == "cuda"
-    if on_card:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-    else:
-        t0 = time.perf_counter()
-    for _ in range(iters):
-        out = f(*args)
-        if chain:
-            args = (out,) + args[1:]
-    if on_card:
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / 1e3 / iters
-    return (time.perf_counter() - t0) / iters
+def span(name: str):
+    """A context manager that records a span ``name`` while recording is on
+    (module docstring)."""
+    if not (_REG.forced or _profiling()):
+        return _NULL
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while recording is on."""
+    if _REG.forced or _profiling():
+        with _REG.lock:
+            _REG.counters[name] = _REG.counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans and counters inside the block, with no profiler and no
+    profiler ranges."""
+    with _REG.lock:
+        _REG.forced += 1
+    try:
+        yield
+    finally:
+        with _REG.lock:
+            _REG.forced -= 1
+
+
+def spans() -> List[Span]:
+    """The recorded spans, oldest first, in the order they closed."""
+    with _REG.lock:
+        ring = list(_REG.ring)
+    return [Span(*s) for s in ring]
+
+
+def counters() -> Dict[str, int]:
+    with _REG.lock:
+        return dict(_REG.counters)
+
+
+def dropped() -> int:
+    """Spans the ring has dropped, oldest first, to stay at ``RING``."""
+    return _REG.dropped
+
+
+def reset() -> None:
+    """Forget every recorded span, counter and drop."""
+    with _REG.lock:
+        _REG.ring.clear()
+        _REG.counters.clear()
+        _REG.dropped = 0
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """``torch.profiler`` over the block; writes ``<log_dir>/trace.json``
-    (Chrome trace, viewable in Perfetto) and yields its path."""
+    (Chrome trace, viewable in Perfetto; the program's spans are ranges in
+    it, ``launches`` each kernel wrapper's launches in the block) and yields
+    its path."""
     from torch.profiler import ProfilerActivity, profile
+
+    from .. import kernels
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, "trace.json")
+    before = [k.launches for k in kernels.wrappers()]
     with profile(activities=activities) as prof:
         yield path
+        prof.add_metadata_json("launches", json.dumps(
+            {k.__name__: k.launches - b for k, b in zip(kernels.wrappers(), before)}))
     prof.export_chrome_trace(path)
