@@ -16,6 +16,9 @@ calls: on the card, wherever ``render`` runs through a kernel
 that 16 does not divide, ``'list'``, ``'list_t'``, ``'dense'``, ``'sweep'``), as
 replays of one captured chunk (``train.trainer.ChunkGraph``), as the JAX one
 fuses them into one TPU dispatch; through ``'xla'`` and on the CPU eagerly.
+On the card the binned decode of ``decompress_wo_ec`` (dequantize, projection,
+kernel E, kernel A) is likewise a replay of one captured graph per stream shape
+(``decode_graph_key``), its rows padded to a multiple of ``ROW_BUCKET``.
 
 Every quantizer statistic is taken over the active rows only. The QAT step
 never re-sorts the rows (the JAX loop does not), masks the model update of
@@ -29,13 +32,15 @@ are device ops), so a chunk of steps can be captured.
 from __future__ import annotations
 
 import dataclasses
+import functools
+from collections import OrderedDict
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..core.binning import morton_perm
-from ..core.gaussian2d import psd_valid_mask
+from ..core.binning import morton_perm, resolve_bin_method
+from ..core.gaussian2d import BLOCK_H, BLOCK_W, psd_valid_mask, tile_bounds_for
 from ..models.gaussian_image import (GaussianConfig, GaussianParams,
                                      GaussianState, colors_of, effective_cov2d,
                                      prepare_render, render, render_fast,
@@ -43,13 +48,13 @@ from ..models.gaussian_image import (GaussianConfig, GaussianParams,
 from ..train.losses import loss_fn
 from ..train.metrics import psnr as psnr_fn
 from ..train.optim import Adam, AdamState, make_adam, step_lr
-from ..train.trainer import ChunkRunner, captures
-from ..utils.profiling import span
+from ..train.trainer import ChunkGraph, ChunkRunner, captures
+from ..utils.profiling import count, span
 from .quantizers import (HybridQuantParams, LogQuantState, UniformQuantParams,
                          _exp, _log, clip, fake_quantize_half, hybrid_size,
                          log_decompress, ste_round, uniform_decompress,
                          uniform_forward, uniform_qrange)
-from .residual_vq import (ResidualVQState, init_residual_vq, residual_vq_bits,
+from .residual_vq import (ResidualVQState, VQCodebook, init_residual_vq, residual_vq_bits,
                           residual_vq_decode, residual_vq_forward)
 
 
@@ -427,6 +432,169 @@ def _binned_config(cfg: GaussianConfig, qcfg: QuantConfig, device) -> GaussianCo
                                raster_backend=pinned)
 
 
+# the binned decode's CUDA graphs: rows padded to a multiple of ROW_BUCKET, at
+# most DECODE_GRAPHS_MAX graphs kept, the least recently used evicted first
+ROW_BUCKET = 512
+DECODE_GRAPHS_MAX = 16
+_DECODE_GRAPHS: "OrderedDict[tuple, _DecodeGraph]" = OrderedDict()
+
+
+class _Inputs(NamedTuple):
+    """What the binned decode reads: ``rows``, the per-row tensors (the
+    codes, ``active``, ``bound``); ``rest``, the grids' scales and betas, the
+    log grid, ``num_active`` and the VQ codebooks, flat."""
+
+    rows: Tuple[torch.Tensor, ...]
+    rest: Tuple[torch.Tensor, ...]
+
+
+def _decode_inputs(bundle: QuantizerBundle, enc: Encoding, bound: torch.Tensor) -> _Inputs:
+    books = () if bundle.color_vq is None else tuple(cb.embed for cb in bundle.color_vq.layers)
+    return _Inputs(
+        rows=(enc.quant_means, enc.quant_cov, enc.color_codes, enc.active, bound),
+        rest=(bundle.xy.scale, bundle.xy.beta, bundle.cov.cov.scale, bundle.cov.cov.beta,
+              bundle.color.scale, bundle.color.beta, enc.log_state.beta, enc.log_state.scale,
+              enc.num_active) + books)
+
+
+def _render_inputs(inp: _Inputs, cfg: GaussianConfig, qcfg: QuantConfig) -> torch.Tensor:
+    """The binned decode of ``_decode_inputs``'s tensors: dequantize, then
+    ``render``."""
+    quant_means, quant_cov, color_codes, active, bound = inp.rows
+    xs, xb, cs, cb, ls, lb, log_b, log_s, num_active, *books = inp.rest
+    color_vq = ResidualVQState(layers=tuple(
+        VQCodebook(embed=e, cluster_size=None, embed_avg=None) for e in books)) if books else None
+    bundle = QuantizerBundle(xy=UniformQuantParams(xs, xb),
+                             cov=HybridQuantParams(cov=UniformQuantParams(cs, cb)),
+                             color=UniformQuantParams(ls, lb), color_vq=color_vq)
+    enc = Encoding(means=None, quant_means=quant_means, quant_cov=quant_cov,
+                   color_codes=color_codes, log_state=LogQuantState(beta=log_b, scale=log_s),
+                   active=active, num_active=num_active)
+    state, over = _decoded_state(bundle, enc, bound, qcfg)
+    return render(state, cfg, **over)
+
+
+@functools.lru_cache(maxsize=256)
+def _graph_config(cfg: GaussianConfig, qcfg: QuantConfig, device: str, rows: int) -> GaussianConfig:
+    """The binned decode's config for ``rows`` rows padded to their bucket,
+    its binner resolved at ``rows``, so that the padding cannot move it:
+    kernel E (``'pallas'``) wherever the binning is an exact selection, whose
+    result is ``'top_k'``'s; any other method (``'hier'``) as it is."""
+    bcfg = _binned_config(cfg, qcfg, device)
+    tb_x, tb_y = tile_bounds_for(bcfg.H, bcfg.W, bcfg.block_h, bcfg.block_w)
+    method = resolve_bin_method(bcfg.bin_method, tb_x * tb_y, rows)
+    if method in ("top_k", "rank", "scatter"):
+        method = "pallas"
+    return dataclasses.replace(bcfg, max_num_points=-(-rows // ROW_BUCKET) * ROW_BUCKET,
+                               bin_method=method)
+
+
+def _key(inp: _Inputs, cfg: GaussianConfig, qcfg: QuantConfig) -> tuple:
+    dev = inp.rows[0].device
+    return (str(dev), _graph_config(cfg, qcfg, dev.type, inp.rows[0].shape[0]),
+            qcfg.xy_quant, qcfg.color_quant,
+            tuple((t.shape[1:], t.dtype) for t in inp.rows),
+            tuple((t.shape, t.dtype) for t in inp.rest))
+
+
+def decode_graph_key(bundle: QuantizerBundle, enc: Encoding, bound: torch.Tensor,
+                     cfg: GaussianConfig, qcfg: QuantConfig) -> tuple:
+    """The key of the graph that renders this input: the device, the graph's
+    config (H, W, the cap, the row bucket, the binner), the quantizer modes
+    and the shapes and dtypes of what the decode reads, rows padded to the
+    bucket. Never the content: two streams of one key share a graph."""
+    return _key(_decode_inputs(bundle, enc, bound), cfg, qcfg)
+
+
+def _graphs(inp: _Inputs, cfg: GaussianConfig) -> bool:
+    """Whether the binned decode of ``inp`` replays a graph: on a CUDA
+    device, 16x16 tiles (the kernels' only ones), a config of the input's
+    row count, and no input that requires grad."""
+    rows = inp.rows
+    if rows[0].device.type != "cuda" or (cfg.block_h, cfg.block_w) != (BLOCK_H, BLOCK_W):
+        return False
+    if cfg.max_num_points != rows[0].shape[0]:
+        return False
+    return not any(t.requires_grad for t in rows + inp.rest)
+
+
+class _DecodeGraph:
+    """One binned decode render captured into a CUDA graph (a
+    ``train.trainer.ChunkGraph`` of an empty carry, so that each replay adds
+    the captured launches to the kernel wrappers' counts) over static
+    buffers: each call copies its input into them, the rows into the first
+    rows of the bucket, and replays. The rows past the input's are inactive
+    with zero codes: an inactive row fails ``valid``, so kernel E gives it
+    the empty bbox and no tile holds it, and the rows before it keep their
+    ids and order, so the image is unchanged. The copies are one
+    ``torch._foreach_copy_`` per dtype, into views kept per row count."""
+
+    def __init__(self, inp: _Inputs, cfg: GaussianConfig, qcfg: QuantConfig):
+        n = cfg.max_num_points
+        self.static = _Inputs(rows=tuple(t.new_zeros((n,) + t.shape[1:]) for t in inp.rows),
+                              rest=tuple(t.clone() for t in inp.rest))
+        self.cfg, self.qcfg = cfg, qcfg
+        flat = inp.rows + inp.rest
+        self.groups = [[i for i, t in enumerate(flat) if t.dtype == dt]
+                       for dt in dict.fromkeys(t.dtype for t in flat)]
+        self.views = {}           # row count -> (destinations by group, rows past the input)
+        self.filled = 0           # rows that may hold an earlier input's codes
+        self.graph: Optional[ChunkGraph] = None
+
+    def _views(self, m: int):
+        got = self.views.get(m)
+        if got is None:
+            dst = [t[:m] for t in self.static.rows] + list(self.static.rest)
+            got = ([[dst[i] for i in g] for g in self.groups],
+                   [t[m:] for t in self.static.rows])
+            self.views[m] = got
+        return got
+
+    def load(self, inp: _Inputs) -> None:
+        m = inp.rows[0].shape[0]
+        dst, past = self._views(m)
+        if self.filled > m:
+            torch._foreach_zero_(past)
+        self.filled = m
+        src = inp.rows + inp.rest
+        for g, d in zip(self.groups, dst):
+            torch._foreach_copy_(d, [src[i] for i in g])
+
+    def run(self) -> torch.Tensor:
+        return _render_inputs(self.static, self.cfg, self.qcfg)
+
+    def capture(self) -> None:
+        self.graph = ChunkGraph(lambda carry: (carry, (self.run(),)), ())
+
+    def replay(self) -> torch.Tensor:
+        """The image of the loaded input, in a fresh tensor: the graph's own
+        output is rewritten by the next replay."""
+        self.graph.replay()
+        return self.graph.outs[0].clone()
+
+
+def _graph_render(inp: _Inputs, cfg: GaussianConfig, qcfg: QuantConfig) -> torch.Tensor:
+    """The binned decode as a replay of its key's graph. A key's first call
+    runs eagerly on the static buffers (the kernels are built and loaded
+    then), returns that image and captures the graph."""
+    key = _key(inp, cfg, qcfg)
+    g = _DECODE_GRAPHS.get(key)
+    if g is not None:
+        _DECODE_GRAPHS.move_to_end(key)
+        g.load(inp)
+        count("decode.graph_replays")
+        return g.replay()
+    g = _DecodeGraph(inp, key[1], qcfg)
+    g.load(inp)
+    img = g.run()
+    g.capture()
+    count("decode.graph_captures")
+    _DECODE_GRAPHS[key] = g
+    while len(_DECODE_GRAPHS) > DECODE_GRAPHS_MAX:
+        _DECODE_GRAPHS.popitem(last=False)
+    return img
+
+
 def decompress_wo_ec(bundle: QuantizerBundle, enc: Encoding, bound: torch.Tensor,
                      cfg: GaussianConfig, qcfg: QuantConfig,
                      backend: Optional[str] = None) -> torch.Tensor:
@@ -438,9 +606,20 @@ def decompress_wo_ec(bundle: QuantizerBundle, enc: Encoding, bound: torch.Tensor
     (kernel B over each enumeration; the last four fastest on a
     ``morton_reorder``-ed stream). The JAX package sends ``'dense'`` to the
     binned branch off the TPU, where its dense kernel would run interpreted;
-    the port renders it cap-free on every device."""
-    state, over = _decoded_state(bundle, enc, bound, qcfg)
+    the port renders it cap-free on every device.
+
+    On a CUDA device the binned decode (dequantize, projection, binning by
+    kernel E, kernel A, clamp) is one CUDA graph replay per key
+    (``decode_graph_key``: the input's shapes, never its content), with the
+    same image as the eager render; the CPU, the cap-free backends and an
+    input that requires grad run eagerly (``_graphs``)."""
     backend = backend or "binned"
+    if backend == "binned":
+        inp = _decode_inputs(bundle, enc, bound)
+        if _graphs(inp, cfg):
+            with span("decode.render"):
+                return _graph_render(inp, cfg, qcfg)
+    state, over = _decoded_state(bundle, enc, bound, qcfg)
     with span("decode.render"):
         if backend in ("list", "list_t", "dense", "sweep", "range"):
             sweep = {"dense": False, "sweep": True}.get(backend, backend)

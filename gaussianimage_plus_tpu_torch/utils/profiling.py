@@ -37,10 +37,15 @@ The spans and counters the port records (where, and what reads them:
 - counter ``decode.uploads``: tensors ``deserialize_bitstream`` makes from
   host arrays, one host-to-device copy each on the card;
 - ``decode.dequantize`` and ``decode.render``: ``compress.pipeline
-  .decompress_wo_ec``, its dequantization and its render;
+  .decompress_wo_ec``, its dequantization and its render; on the card the
+  binned decode is one ``decode.render`` around the copy of its input into
+  the graph's buffers and the replay, with no ``decode.dequantize``;
+- counters ``decode.graph_captures`` and ``decode.graph_replays``:
+  ``compress.pipeline.decompress_wo_ec``'s binned decodes that captured a
+  CUDA graph (a key's first call, run eagerly) and that replayed one;
 - ``render.bin``: the binning in ``models.gaussian_image.render`` when no
   gradient flows through the render (a decode, an evaluation; no training
-  step);
+  step), where it runs eagerly: a graph replay records none;
 - ``fit``: ``train.trainer.fit_image``, whole, the root of a fit;
 - ``fit.warm_chunk`` and ``fit.capture``: ``ChunkRunner.run``'s eager chunk
   before the capture and its ``ChunkGraph`` construction;

@@ -15,7 +15,11 @@ the port's decode paths and ``render`` against the JAX package's.
 - ``render`` with the cap-free ``list_t`` backend on a fitted state against
   JAX ``render(raster_backend='xla')``, which is capped at 256: the same
   function when no tile has more than 256 members, asserted first;
-- ``state_from_numpy`` round trip.
+- ``state_from_numpy`` round trip;
+- the binned decode's CUDA graph inputs, on the CPU: padding a stream's rows
+  to its 512-row bucket with inactive, zero-coded rows leaves the decode
+  ``torch.equal``; the 50 committed streams share at most 8 graph keys; the
+  CPU and an input that requires grad decode eagerly and capture nothing.
 
 Tolerance atol 2e-5, rtol 1e-5 (``test_torch_raster.assert_render_close``);
 at most ``MAX_FRAC`` of the pixels may miss it, each within the rounding bound
@@ -24,6 +28,7 @@ of the expanded quadratic. Measured: 60 pixels (0.015%) on kodim01, 121
 """
 
 import dataclasses
+import glob
 import os
 
 import numpy as np
@@ -37,9 +42,11 @@ from gaussianimage_plus_tpu.compress.pipeline import _decode_attributes as jax_d
 from gaussianimage_plus_tpu.compress.pipeline import prepare_decode as jax_prepare_decode
 from gaussianimage_plus_tpu.models import gaussian_image as jgi
 
-from gaussianimage_plus_tpu_torch.compress.bitstream import decode_bitstream
+from gaussianimage_plus_tpu_torch.compress import pipeline as pl
+from gaussianimage_plus_tpu_torch.compress.bitstream import decode_bitstream, deserialize_bitstream
 from gaussianimage_plus_tpu_torch.compress.pipeline import (_decode_attributes, decode_frame,
                                                             morton_reorder, prepare_decode)
+from gaussianimage_plus_tpu_torch.compress.quantizers import UniformQuantParams
 from gaussianimage_plus_tpu_torch.core.binning import bin_gaussians
 from gaussianimage_plus_tpu_torch.interop import config_from_numpy, state_from_numpy
 from gaussianimage_plus_tpu_torch.kernels.raster_binned import _gather
@@ -50,6 +57,10 @@ from test_torch_raster import assert_render_close, sigma_error_bound
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 R4 = os.path.join(ROOT, "results", "bitstreams_r4", "kodim01.gipb")
 VQ = os.path.join(ROOT, "results", "bitstreams_vq_r5", "kodim02.gipb")
+R4_PORTRAIT = os.path.join(ROOT, "results", "bitstreams_r4", "kodim04.gipb")   # 768 x 512
+# the benchmark's 50 streams (portbench/configs/kodak-768x512-n5000.json)
+STREAMS = sorted(p for d in ("bitstreams_r3", "bitstreams_r4", "bitstreams_vq_r5")
+                 for p in glob.glob(os.path.join(ROOT, "results", d, "*.gipb")))
 STATE = os.path.join(ROOT, "results", "repr_states_cn", "kodim01.npz")
 MAX_FRAC = 5e-4
 
@@ -198,3 +209,83 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
         img, _ = decode_bitstream(data, backend=backend, device="cpu")
         assert_render_close(img, ref.numpy(), what=backend)
     assert jax.default_backend() == "cpu"
+
+
+def _transposed(dec):
+    """The stream's image transposed: x and y swapped in the position codes,
+    their grid and the covariance codes, H and W swapped (the committed VQ
+    streams are all landscape)."""
+    enc, xy = dec.enc, dec.bundle.xy
+    enc = enc._replace(means=enc.means[:, [1, 0]], quant_means=enc.quant_means[:, [1, 0]],
+                       quant_cov=enc.quant_cov[:, [2, 1, 0]])
+    bundle = dec.bundle._replace(xy=UniformQuantParams(scale=xy.scale[[1, 0]],
+                                                       beta=xy.beta[[1, 0]]))
+    return dec._replace(enc=enc, bundle=bundle, H=dec.W, W=dec.H)
+
+
+@pytest.mark.parametrize("path,transpose", [(R4, False), (R4_PORTRAIT, False), (VQ, False),
+                                            (VQ, True)],
+                         ids=["lsq-landscape", "lsq-portrait", "vq-landscape", "vq-portrait"])
+def test_row_bucket_padding_keeps_the_decode(path, transpose):
+    """The graph's buffers hold a stream's rows padded to a multiple of 512
+    with inactive rows of zero codes; reloaded after an input that filled
+    the whole bucket with active rows, they decode to the eager image."""
+    dec = deserialize_bitstream(open(path, "rb").read(), device="cpu")
+    if transpose:
+        dec = _transposed(dec)
+    cfg = _cfg(dec)
+    eager = pl.decompress_wo_ec(dec.bundle, dec.enc, dec.bound, cfg, dec.qcfg)
+    gcfg = pl.decode_graph_key(dec.bundle, dec.enc, dec.bound, cfg, dec.qcfg)[1]
+    m, n = dec.enc.active.shape[0], gcfg.max_num_points
+    assert n % pl.ROW_BUCKET == 0 and 0 < n - m < pl.ROW_BUCKET
+    assert gcfg.bin_method == "pallas" and (gcfg.H, gcfg.W) == (dec.H, dec.W)
+    inp = pl._decode_inputs(dec.bundle, dec.enc, dec.bound)
+    g = pl._DecodeGraph(inp, gcfg, dec.qcfg)
+    full = [torch.cat([t, t[:n - m]]) for t in inp.rows]
+    full[3] = torch.ones_like(full[3])                       # every row active
+    g.load(inp._replace(rows=tuple(full)))
+    assert bool(g.static.rows[3].all())
+    g.load(inp)
+    assert all(not bool(t[m:].any()) for t in g.static.rows)
+    assert torch.equal(g.run(), eager)
+
+
+def test_committed_streams_share_few_graph_keys():
+    """The 50 committed streams (two orientations, two colour modes, 4552 to
+    4960 rows) map to at most 8 graph keys, and each key to one config."""
+    assert len(STREAMS) == 50
+    keys = set()
+    for path in STREAMS:
+        dec = deserialize_bitstream(open(path, "rb").read(), device="cpu")
+        keys.add(pl.decode_graph_key(dec.bundle, dec.enc, dec.bound, _cfg(dec), dec.qcfg))
+    assert len(keys) <= 8
+    assert {(k[1].H, k[1].W) for k in keys} == {(512, 768), (768, 512)}
+    assert {k[3] for k in keys} == {"lsq", "vq"}
+
+
+def test_cpu_and_grad_inputs_decode_eagerly():
+    """On the CPU, and with an input that requires grad, the binned decode
+    runs eagerly (dequantize, then ``render`` with its binning span) and
+    counts no graph capture or replay."""
+    from gaussianimage_plus_tpu_torch.utils import profiling
+
+    dec = deserialize_bitstream(open(VQ, "rb").read(), device="cpu")
+    cfg = _cfg(dec)
+    color_vq = dec.bundle.color_vq._replace(layers=tuple(
+        cb._replace(embed=cb.embed.clone().requires_grad_(True))
+        for cb in dec.bundle.color_vq.layers))
+    graded = dec.bundle._replace(color_vq=color_vq)
+    profiling.reset()
+    try:
+        with profiling.recording():
+            img = pl.decompress_wo_ec(dec.bundle, dec.enc, dec.bound, cfg, dec.qcfg)
+            img_g = pl.decompress_wo_ec(graded, dec.enc, dec.bound, cfg, dec.qcfg)
+        names = [s.name for s in profiling.spans()]
+        counters = profiling.counters()
+    finally:
+        profiling.reset()
+    assert not pl._graphs(pl._decode_inputs(dec.bundle, dec.enc, dec.bound), cfg)
+    assert names.count("decode.dequantize") == 2 and names.count("render.bin") == 2
+    assert "decode.graph_captures" not in counters and "decode.graph_replays" not in counters
+    assert img_g.requires_grad and torch.equal(img_g.detach(), img)
+    assert not pl._DECODE_GRAPHS

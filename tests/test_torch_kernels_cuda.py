@@ -32,6 +32,15 @@ chunk lists, ``'dense'`` and ``'sweep'``) runs a chunk, and a QAT chunk, under
 and QAT chunk, and a graphed ``fit_batch`` of two images, equal their eager
 runs; a step that reads a value on the host makes the capture raise.
 
+The binned decode's graphs (``compress.pipeline.decompress_wo_ec``): on the
+50 committed streams the first call and a replay each equal the eager
+binned decode (``'top_k'`` selection) bit for bit, a second pass captures
+nothing and replays 50 times, a replay adds one launch each to kernels A and
+E; two images of one graph held at once keep their own pixels; a replay
+never synchronises with the host; an input that requires grad decodes
+eagerly; and the benchmark's decode faults (``portbench/control.py``) fail
+``rms_gap`` through the replays.
+
 Kernel A reads its tile's rows of the attribute table through the slot
 ids, 128 at a time, and gives a thread 2 pixels of one column; besides the
 shared scenes it runs on the binned fit state's shape (a tile of ~150 live
@@ -60,6 +69,7 @@ two launches against each other.
 import dataclasses
 import functools
 import io
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -917,3 +927,156 @@ def test_capture_of_a_host_sync_raises(card):
     after, m = tr.train_chunk(ts, gt, cfg, tcfg, 2, True, False)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(m["psnr"]).all())
+
+
+ROOT = Path(__file__).resolve().parents[1]
+# the benchmark's 50 streams (portbench/configs/kodak-768x512-n5000.json)
+DECODE_STREAMS = sorted(p for d in ("bitstreams_r3", "bitstreams_r4", "bitstreams_vq_r5")
+                        for p in (ROOT / "results" / d).glob("*.gipb"))
+
+
+def _parsed(card, paths=DECODE_STREAMS):
+    """(the parsed streams on the card, their decode configs, their eager
+    binned decodes: ``_binned_config``'s render, selection ``'top_k'``)."""
+    from gaussianimage_plus_tpu_torch.compress import bitstream as bs
+    from gaussianimage_plus_tpu_torch.compress import pipeline as pl
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+
+    decs = [bs.deserialize_bitstream(p.read_bytes(), device=card) for p in paths]
+    cfgs = [gi.GaussianConfig(H=d.H, W=d.W, max_num_points=d.enc.active.shape[0],
+                              tile_cap=d.qcfg.decode_cap or 256) for d in decs]
+    eager = []
+    for d, c in zip(decs, cfgs):
+        bcfg = pl._binned_config(c, d.qcfg, card)
+        assert bcfg.bin_method == "auto" and bcfg.raster_backend == "pallas"
+        state, over = pl._decoded_state(d.bundle, d.enc, d.bound, d.qcfg)
+        eager.append(gi.render(state, bcfg, **over))
+    return decs, cfgs, eager
+
+
+def _decode(dec, cfg):
+    from gaussianimage_plus_tpu_torch.compress import pipeline as pl
+
+    return pl.decompress_wo_ec(dec.bundle, dec.enc, dec.bound, cfg, dec.qcfg)
+
+
+@pytest.mark.cuda
+def test_graphed_decode_is_bit_equal(card):
+    """Every committed stream's first call and a replay equal its eager
+    binned decode; the streams take at most 8 graphs; a second pass adds 0
+    captures and 50 replays; a replay adds exactly one launch to kernel A
+    and one to kernel E."""
+    from gaussianimage_plus_tpu_torch.compress import pipeline as pl
+    from gaussianimage_plus_tpu_torch.kernels import wrappers
+    from gaussianimage_plus_tpu_torch.utils import profiling
+
+    pl._DECODE_GRAPHS.clear()
+    decs, cfgs, eager = _parsed(card)
+    assert len(decs) == 50
+    profiling.reset()
+    try:
+        with profiling.recording():
+            for i, (d, c, e) in enumerate(zip(decs, cfgs, eager)):
+                assert pl._graphs(pl._decode_inputs(d.bundle, d.enc, d.bound), c)
+                assert torch.equal(_decode(d, c), e), f"first call, stream {i}"
+                assert torch.equal(_decode(d, c), e), f"replay, stream {i}"
+            first = profiling.counters()
+            for i, (d, c, e) in enumerate(zip(decs, cfgs, eager)):
+                assert torch.equal(_decode(d, c), e), f"second pass, stream {i}"
+            second = profiling.counters()
+    finally:
+        profiling.reset()
+    caps = first["decode.graph_captures"]
+    assert caps == len(pl._DECODE_GRAPHS) <= 8
+    assert first["decode.graph_replays"] == 100 - caps
+    assert second["decode.graph_captures"] == caps
+    assert second["decode.graph_replays"] == first["decode.graph_replays"] + 50
+    before = [k.launches for k in wrappers()]
+    _decode(decs[0], cfgs[0])
+    assert [k.launches - b for k, b in zip(wrappers(), before)] == [1, 0, 0, 0, 1]
+
+
+@pytest.mark.cuda
+def test_graphed_decode_images_are_fresh_tensors(card):
+    """Two images replayed from one graph and held at once each equal
+    their own eager decode."""
+    from gaussianimage_plus_tpu_torch.compress import pipeline as pl
+
+    paths = [ROOT / "results/bitstreams_r4/kodim01.gipb", ROOT / "results/bitstreams_r4/kodim02.gipb"]
+    decs, cfgs, eager = _parsed(card, paths)
+    keys = {pl.decode_graph_key(d.bundle, d.enc, d.bound, c, d.qcfg) for d, c in zip(decs, cfgs)}
+    assert len(keys) == 1
+    _decode(decs[0], cfgs[0])
+    a = _decode(decs[0], cfgs[0])
+    b = _decode(decs[1], cfgs[1])
+    assert not torch.equal(eager[0], eager[1])
+    assert torch.equal(a, eager[0]) and torch.equal(b, eager[1])
+
+
+@pytest.mark.cuda
+def test_graphed_decode_never_syncs(card):
+    """A replay (the copy of the input into the graph's buffers, the replay,
+    the copy of the image) runs under ``set_sync_debug_mode("error")``."""
+    decs, cfgs, eager = _parsed(card, [ROOT / "results/bitstreams_vq_r5/kodim01.gipb"])
+    _decode(decs[0], cfgs[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img = _decode(decs[0], cfgs[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(img, eager[0])
+
+
+@pytest.mark.cuda
+def test_grad_inputs_decode_eagerly_on_the_card(card):
+    """An input that requires grad takes the eager binned decode: no capture,
+    no replay, the same pixels."""
+    from gaussianimage_plus_tpu_torch.compress import pipeline as pl
+    from gaussianimage_plus_tpu_torch.utils import profiling
+
+    decs, cfgs, eager = _parsed(card, [ROOT / "results/bitstreams_r3/kodim05.gipb"])
+    d = decs[0]
+    col = d.bundle.color
+    graded = d.bundle._replace(color=col._replace(scale=col.scale.clone().requires_grad_(True)))
+    assert not pl._graphs(pl._decode_inputs(graded, d.enc, d.bound), cfgs[0])
+    profiling.reset()
+    try:
+        with profiling.recording():
+            img = pl.decompress_wo_ec(graded, d.enc, d.bound, cfgs[0], d.qcfg)
+        counters = profiling.counters()
+    finally:
+        profiling.reset()
+    assert "decode.graph_captures" not in counters and "decode.graph_replays" not in counters
+    assert img.requires_grad and torch.equal(img.detach(), eager[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["altered_image", "altered_token"])
+def test_decode_faults_fail_through_the_graph(card, fault):
+    """The benchmark's decode faults, planted in the program, fail
+    ``rms_gap`` against the plain reference through graph replays, where
+    the sound replay passes: a graph holds the stream's shape, never its
+    codes."""
+    from gaussianimage_plus_tpu_torch.compress import bitstream as bs
+    from gaussianimage_plus_tpu_torch.utils import profiling
+    from portbench import cell as CL
+    from portbench import control
+
+    cell = CL.load_cell("kodak-decode")
+    mod = CL.kind(cell)
+    limit = cell.config["limits"]["rms_gap"]
+    buf = (ROOT / "results/bitstreams_r4/kodim01.gipb").read_bytes()   # row 0 is visible
+    ref = mod.reference_image(buf, card)
+    bs.decode_bitstream(buf, device=card)
+    profiling.reset()
+    try:
+        with profiling.recording():
+            sound, _ = bs.decode_bitstream(buf, device=card)
+            with control.planted(fault):
+                bad, _ = bs.decode_bitstream(buf, device=card)
+        replays = profiling.counters().get("decode.graph_replays")
+    finally:
+        profiling.reset()
+    assert replays == 2
+    assert mod.rms(sound, ref) <= limit < mod.rms(bad, ref)
