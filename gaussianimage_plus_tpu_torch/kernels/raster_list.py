@@ -45,6 +45,7 @@ import torch
 from ..core.binning import select_members
 from ..core.gaussian2d import BLOCK_H, BLOCK_W, Projected, tile_bbox, tile_bounds_for
 from ..core.render_tiled import render_table, tile_grads
+from ..utils import profiling
 from . import _build
 from .raster_binned import COLS, _build_table
 
@@ -98,6 +99,12 @@ def _chunk_lists(member: torch.Tensor, N: int, Np: int, kc: int, lmax: int):
     (lst [T, lmax] int32, cnt [T], lo2 [T], hi2 [T]). Tile t's member chunks
     are lst[t, :cnt[t]] and those in [lo2[t], hi2[t]) (nonempty only past
     lmax member chunks)."""
+    return _lists_and_members(member, Np, kc, lmax)[0]
+
+
+def _lists_and_members(member: torch.Tensor, Np: int, kc: int, lmax: int):
+    """``_chunk_lists``' lists and each tile's count of member chunks [T]
+    (int32), which the lists are built from."""
     T = member.shape[0]
     nch = Np // kc
     dev = member.device
@@ -120,7 +127,7 @@ def _chunk_lists(member: torch.Tensor, N: int, Np: int, kc: int, lmax: int):
     last = torch.where(mc, ids_c[None, :], torch.full_like(mc, -1, dtype=torch.int32)).amax(dim=-1)
     hi2 = torch.where(over, last + 1, zero)
     return (lst.contiguous(), cnt.to(torch.int32), lo2.to(torch.int32),
-            hi2.to(torch.int32))
+            hi2.to(torch.int32)), cnt_full
 
 
 def chunk_list_forward_plain(table, bbox, lst, cnt, lo2, hi2, kc: int,
@@ -207,11 +214,30 @@ def member_lists(table, bbox, N: int, Np: int, kc: int, H: int, W: int,
                  lmax: int = None):
     """The chunk-list enumeration: each tile's member chunks, the first
     ``lmax`` listed and the rest as a residual interval -> (lst, cnt, lo2,
-    hi2)."""
+    hi2). While ``utils.profiling.counting()`` it also counts the lists
+    (``_count_lists``); otherwise, and under a capture, it runs only the
+    enumeration."""
     lmax = _default_lmax(H, W) if lmax is None else lmax
     tb_x, tb_y = tile_bounds_for(H, W)
     member = _bbox_members(table, bbox, tb_x, tb_x * tb_y)
-    return _chunk_lists(member, N, Np, kc, lmax)
+    lists, members = _lists_and_members(member, Np, kc, lmax)
+    if profiling.counting():
+        _count_lists(lists, members)
+    return lists
+
+
+def _count_lists(lists, members) -> None:
+    """Device counters of one enumeration (``utils/profiling.py``): its
+    tiles (``lists.tiles``), the tiles whose member chunks exceed the list
+    width (``lists.overflow_tiles``), the member chunks
+    (``lists.member_chunks``), and the chunks kernel B visits, the listed
+    ones and the residual interval (``lists.visited_chunks``). ``members``
+    is each tile's count of member chunks; nothing is read on the host."""
+    _, cnt, lo2, hi2 = lists
+    profiling.count_device("lists.tiles", cnt.shape[0])
+    profiling.count_device("lists.overflow_tiles", (members > cnt).sum())
+    profiling.count_device("lists.member_chunks", members.sum())
+    profiling.count_device("lists.visited_chunks", cnt.sum() + (hi2 - lo2).sum())
 
 
 def list_inputs(proj: Projected, colors, opacity, H: int, W: int, kc: int,

@@ -9,6 +9,14 @@ profiler trace.
   spans sit in a ring of ``RING`` entries that drops its oldest past that
   and counts the drops.
 - ``count(name, n)`` adds to a host integer counter while recording is on.
+- ``count_device(name, value)`` adds a device scalar to a device counter,
+  tagged with the root of the innermost open span (0 outside any), while
+  ``counting()``: recording is on and no CUDA stream is being captured. A
+  caller computes what it counts only when ``counting()`` holds, so that,
+  off or under a capture, its device work is what it would be without the
+  count, and a graph captures no node of it. The sums stay on the device;
+  ``device_counters()`` reads them to host integers, a sync, for readers
+  after the work.
 - Recording is on while a torch profiler records, and inside
   ``recording()``, which needs no profiler. Whether a span records is
   decided when it opens. Off, a span costs a flag check and a shared null
@@ -21,7 +29,8 @@ profiler trace.
   reader of device busy time would count as device work.
 - A span never synchronises with the device and never launches device work,
   so spans may open while a CUDA graph is being captured.
-- ``spans()``, ``counters()`` and ``dropped()`` return copies for readers;
+- ``spans()``, ``counters()``, ``device_counters()`` and ``dropped()``
+  return copies for readers;
   ``reset()`` empties the registry.
 - ``trace(log_dir)`` writes a Chrome trace with ``torch.profiler`` (device
   activity included when there is a card): the program's spans are ranges
@@ -49,7 +58,12 @@ The spans and counters the port records (where, and what reads them:
 - ``fit``: ``train.trainer.fit_image``, whole, the root of a fit;
 - ``fit.warm_chunk`` and ``fit.capture``: ``ChunkRunner.run``'s eager chunk
   before the capture and its ``ChunkGraph`` construction;
-- ``fit.grow``: ``train.trainer._grow_ts``, a growth.
+- ``fit.grow``: ``train.trainer._grow_ts``, a growth;
+- device counters ``lists.tiles``, ``lists.overflow_tiles``,
+  ``lists.member_chunks`` and ``lists.visited_chunks``: per enumeration of
+  ``kernels.raster_list.member_lists``, the tiles, those whose member chunks
+  exceed the list width, the member chunks, and the chunks kernel B visits
+  (the listed ones and the residual interval).
 """
 
 from __future__ import annotations
@@ -61,7 +75,7 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Deque, Dict, List, NamedTuple
+from typing import Deque, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -89,6 +103,8 @@ class _Registry:
         self.ring: Deque[tuple] = deque(maxlen=RING)
         self.dropped = 0
         self.counters: Dict[str, int] = {}
+        # (name, root) -> a device scalar or an int, summed where it was counted
+        self.device: Dict[Tuple[str, int], Union[torch.Tensor, int]] = {}
         self.forced = 0
         self.ids = itertools.count(1)
         self.local = threading.local()
@@ -151,6 +167,27 @@ def count(name: str, n: int = 1) -> None:
             _REG.counters[name] = _REG.counters.get(name, 0) + n
 
 
+def counting() -> bool:
+    """Whether ``count_device`` records now: recording is on and no CUDA
+    stream is being captured."""
+    if not (_REG.forced or _profiling()):
+        return False
+    return not (torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing())
+
+
+def count_device(name: str, value: Union[torch.Tensor, int]) -> None:
+    """Add ``value``, a device scalar or an int, to the device counter
+    ``name`` under the root of the innermost open span, while
+    ``counting()``. The addition runs on the device: nothing is read."""
+    if not counting():
+        return
+    stack = _REG.open()
+    key = (name, stack[-1].root if stack else 0)
+    with _REG.lock:
+        prev = _REG.device.get(key)
+        _REG.device[key] = value if prev is None else prev + value
+
+
 @contextlib.contextmanager
 def recording():
     """Record spans and counters inside the block, with no profiler and no
@@ -176,6 +213,21 @@ def counters() -> Dict[str, int]:
         return dict(_REG.counters)
 
 
+def device_counters(root: Optional[int] = None) -> Dict[str, int]:
+    """The device counters as host integers, summed over roots, or only
+    those under the span ``root``. It waits for the device: a reader calls
+    it after the work."""
+    with _REG.lock:
+        items = list(_REG.device.items())
+    if any(isinstance(v, torch.Tensor) and v.is_cuda for _, v in items):
+        torch.cuda.synchronize()
+    out: Dict[str, int] = {}
+    for (name, r), v in items:
+        if root is None or r == root:
+            out[name] = out.get(name, 0) + int(v)
+    return out
+
+
 def dropped() -> int:
     """Spans the ring has dropped, oldest first, to stay at ``RING``."""
     return _REG.dropped
@@ -186,6 +238,7 @@ def reset() -> None:
     with _REG.lock:
         _REG.ring.clear()
         _REG.counters.clear()
+        _REG.device.clear()
         _REG.dropped = 0
 
 

@@ -19,12 +19,18 @@ case on the card.
 - The card (``-m cuda``): a graphed ``fit_image`` under the profiler records
   ``fit.warm_chunk`` and ``fit.capture`` once, under its ``fit`` root, its
   capture succeeds and its history equals an unprofiled fit's; the clock
-  check holds there.
+  check holds there. A chunk of the 2K fit (2040x1344, 20,000 rows, list
+  width 8, some tiles past it) captured with recording off and on: the eager
+  chunk under recording counts every enumeration (``lists.*``), the
+  captures count nothing, the two graphs launch the same kernels and replay
+  to the same outputs, and a replay under recording counts nothing.
 
 This file imports no JAX, so the card case runs on the card with
 ``python -m pytest --noconftest tests/test_torch_tracing.py -m cuda``.
 """
 
+import contextlib
+import math
 import statistics
 from pathlib import Path
 
@@ -210,3 +216,56 @@ def test_graphed_fit_spans_on_the_card(card):
     names = {s.name for s in spans}
     assert not [e for e in prof.profiler.kineto_results.events()
                 if e.name() in names and e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.cuda
+def test_graphed_2k_chunk_is_the_same_with_counters_on(card):
+    H, W, M, n, steps = 1344, 2040, 20000, 10000, 10
+    cfg = gi.GaussianConfig(H=H, W=W, max_num_points=M)
+    assert tr.captures(cfg, card) and gi.resolve_backend(cfg, card) == "list_t"
+    tcfg = tr.TrainConfig(iterations=steps, prune_iter=steps, grow_iter=steps)
+    g = torch.Generator(device=card)
+    g.manual_seed(11)
+    lp = min(H * W / (9.0 * math.pi * n), 300.0)
+    # the benchmark's initial rows, but a twentieth of them 4000 px² wide, so
+    # that tiles have more than 8 member chunks and kernel B walks residual
+    # intervals (on the benchmark's rows no tile has more than 7)
+    cov = torch.rand((M, 3), generator=g, device=card)
+    big = torch.rand((M, 1), generator=g, device=card) < 0.05
+    state = gi.GaussianState(
+        params=gi.GaussianParams(
+            xyz=torch.rand((M, 2), generator=g, device=card) * torch.tensor([W, H], device=card),
+            cov2d=torch.where(big, torch.tensor([4000.0, 0.0, 4000.0], device=card), cov),
+            features=torch.zeros((M, 3), device=card)),
+        active=torch.arange(M, device=card) < n,
+        bound=torch.tensor([lp, 0.0, lp], device=card).expand(M, 3).contiguous(),
+        num_active=torch.tensor(n, dtype=torch.int32, device=card))
+    gt = torch.rand((H, W, 3), generator=g, device=card)
+    runner = tr._fit_runner(gt, cfg, tcfg, steps, True)
+    carry = (tr.init_train_state(cfg, tcfg, n, seed=5, gaussians=state),
+             torch.zeros((H, W, 3), device=card))
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with profiling.recording(), torch.cuda.stream(side):
+        runner.fn(tr._clone(carry))
+    torch.cuda.current_stream(card).wait_stream(side)
+    eager = profiling.device_counters()
+    tiles = -(-W // 16) * -(-H // 16)
+    assert eager["lists.tiles"] == steps * tiles
+    assert 0 < eager["lists.overflow_tiles"] < steps * tiles
+    assert eager["lists.visited_chunks"] > eager["lists.member_chunks"] > 0
+    profiling.reset()
+    outs, launches = {}, {}
+    for on in (False, True):
+        rec = profiling.recording if on else contextlib.nullcontext
+        with rec():
+            graph = tr.ChunkGraph(runner.fn, carry)
+        graph.load(carry)
+        with rec():
+            graph.replay()
+        torch.cuda.synchronize()
+        assert profiling.device_counters() == {} and profiling.spans() == []
+        outs[on] = tr._tensors((graph.carry(carry), graph.outs))
+        launches[on] = graph._launches
+    assert launches[True] == launches[False] and sum(launches[False]) > 0
+    assert all(torch.equal(a, b) for a, b in zip(outs[False], outs[True], strict=True))
