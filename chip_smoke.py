@@ -11,10 +11,10 @@ configuration (768x512, ~5000 Gaussians, per-tile cap 256), fits 768x512
 images through the cap-free and the binned trainers, a 752x496 crop (an odd
 tile grid) and a 2040x1344 image (20,000 Gaussians), runs the coding path
 (QAT, the encoder, the ``.gipb`` written and decoded back), and holds the
-five hand-written CUDA kernels against their plain PyTorch versions. Phases:
+six hand-written CUDA kernels against their plain PyTorch versions. Phases:
 
 1. card: name and power limit from ``nvidia-smi``, checked against torch;
-2. build: the five kernels from ``csrc/``, one ``nvcc`` per source, together;
+2. build: the six kernels from ``csrc/``, one ``nvcc`` per source, together;
 3. kernel vs plain version on the card, at full width: kernel A
    (``tile_table_forward``: a block of 128 threads a tile reads the tile's
    rows of the attribute table through the slot ids, a thread 2 pixels of
@@ -188,7 +188,10 @@ five hand-written CUDA kernels against their plain PyTorch versions. Phases:
    under ``torch.profiler``, E at the fit, kodim01 and 2K states; at A's
    three states the ``[T, K, 16]`` gather ``table[ids]`` that fed kernel A
    before it read through the slot ids, timed alone (A's ``library_ms``: the
-   port no longer runs it);
+   port no longer runs it); kernel F (``chunk_lists``, the chunk-list
+   enumeration) at the timed fit state and the 2K state, its lists equal to
+   the plain enumeration's, both sides' device time a call and F's bound
+   (its bytes), as the JSON's sixth row;
    per kernel
    and state the launches of phase 4's paths (the odd-grid fit's taken at
    the fit state, path (e)'s gradients at kodim01's), the bound, and
@@ -438,6 +441,46 @@ def device_ms_per_call(fn, calls: int = FRAMES, reps: int = 5) -> float:
             check(cycles < 64 * SPIN_CYCLES, f"the host took {host_ms:.1f} ms to queue {calls} calls")
             cycles *= 2
     return statistics.median(per_call)
+
+
+def kernel_f(states: dict) -> dict:
+    """Kernel F (``raster_list.chunk_lists``) against the plain enumeration
+    (``chunk_lists_plain``: the [T, Np] membership, its ``any`` and ``topk``)
+    at each state ``tag: (table, bbox, Np, kc, lmax, H, W)``: the lists,
+    counts and member counts equal, both sides' device time a call (queued)
+    and the kernel's back to back, and its bound, its bytes: the bbox and
+    valid column read (20 B a row), the marks written and read (T * nch
+    bytes each way) and the lists written ((lmax + 4) x 4 B a tile)."""
+    from gaussianimage_plus_tpu_torch.kernels import raster_list
+
+    rows = {}
+    for tag, args in states.items():
+        table, _, Np, kc, lmax, h, w = args
+        (lst, cnt, lo2, hi2), members = raster_list.chunk_lists(*args)
+        want = raster_list.chunk_lists_plain(*args)
+        sync()
+        check(all(torch.equal(a, b) for a, b in zip((lst, cnt, lo2, hi2, members),
+                                                     (*want[0], want[1]))),
+              f"kernel F, {tag}: the lists differ from the plain enumeration's")
+        T, nch = lst.shape[0], Np // kc
+        b_ms, b_by = bound(0, table.shape[0] * 20 + 2 * T * nch + T * (lmax + 4) * 4)
+        # the plain chain launches ~30 kernels a call: 50 calls queued behind
+        # the spin kernel would fill the card's queue of pending launches and
+        # make the host wait for the spin; 10 stay inside it
+        row = dict(ms=launch_ms(lambda a=args: raster_list.chunk_lists(*a)),
+                   device_ms=device_ms_per_call(lambda a=args: raster_list.chunk_lists(*a)),
+                   plain_device_ms=device_ms_per_call(
+                       lambda a=args: raster_list.chunk_lists_plain(*a), calls=10),
+                   bound_ms=b_ms, bound_by=b_by, tiles=T, chunks=nch, rows=table.shape[0],
+                   lmax=lmax, member_chunks=int(members.sum()), most_members=int(members.max()),
+                   overflow_tiles=int((members > lmax).sum()))
+        log(f"  kernel F, {tag} ({h}x{w}, {table.shape[0]} rows, kc {kc}, {nch} chunks, lmax "
+            f"{lmax}): lists equal to the plain enumeration's; {row['member_chunks'] / T:.2f} "
+            f"member chunks a tile (at most {row['most_members']}); {row['device_ms']:.4f} ms "
+            f"device time a call ({row['ms']:.4f} back to back), plain {row['plain_device_ms']:.4f}"
+            f" ms; bound {b_ms:.5f} ms ({b_by})")
+        rows[tag] = row
+    return rows
 
 
 def bound(ops: int, nbytes: int) -> tuple[float, str]:
@@ -1495,9 +1538,9 @@ def run() -> None:
     # ---- 2. build
     t0 = time.perf_counter()
     ptxas = _build.build_all(["tile_table_forward", "chunk_list_forward", "chunk_backward",
-                              "tile_table_backward", "tile_bin"])
+                              "tile_table_backward", "tile_bin", "chunk_lists"])
     build_s = time.perf_counter() - t0
-    log(f"[2] built the five kernels in {build_s:.1f} s (sm_90a, one nvcc per source)")
+    log(f"[2] built the six kernels in {build_s:.1f} s (sm_90a, one nvcc per source)")
     for name, text in ptxas.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line.lower():
@@ -2285,6 +2328,13 @@ def run() -> None:
                                      plain_b(*inp_fit, 128, cfg_fit.H, cfg_fit.W)))
     times["kernel B, fit state kc 128"] = launch_ms(
         lambda: kernel_b(*inp_fit, 128, cfg_fit.H, cfg_fit.W))
+    # kernel F at the timed fit state and the converged 2K state
+    f_rows = kernel_f({
+        "fit state": (*inp_fit[:2], inp_fit[0].shape[0], 128, inp_fit[2].shape[1],
+                      cfg_fit.H, cfg_fit.W),
+        "2K state": (*inp_2k[:2], inp_2k[0].shape[0], 128, inp_2k[2].shape[1],
+                     cfg_2k.H, cfg_2k.W)})
+    report["kernel_f"] = f_rows
     # kernel D at three states: the binned fit state after growth (its plain
     # version beside it), kodim01's binned table and the 2K state; kernel E at
     # the fit state
@@ -2502,7 +2552,12 @@ def run() -> None:
                                                   bins_dq.ids, bins_dq.mask), cfg_dq.H, cfg_dq.W)
     err["a"] = max(err["a"], compare_a("A QAT stream binned (cap 256)", a_states["qat"][:3],
                                        cfg_dq.H, cfg_dq.W))
+    # the coding path's decodes bin the QAT stream with kernel E (inside the decode graph)
+    tb_dq = tile_bounds_for(cfg_dq.H, cfg_dq.W)
+    e_states["qat"] = (binning_tiles.tile_bbox_table(proj_dq.xys, proj_dq.radii, tb_dq,
+                                                     proj_dq.valid), *tb_dq)
     for key, fn in (("kernel A, QAT stream", lambda: kernel_a(*a_states["qat"])),
+                    ("kernel E, qat state", lambda: kernel_e(*e_states["qat"], 256)),
                     ("kernel B, QAT state kc 128", lambda: kernel_b(*inp_q, 128, cfg_q.H, cfg_q.W)),
                     ("kernel C, QAT state kc 128", lambda: kernel_c(table_cq, bbox_cq, cot_q))):
         times[key], device_ms[key] = launch_ms(fn), device_ms_per_call(fn)
@@ -2675,7 +2730,7 @@ def run() -> None:
               "kodim01": ("kernel D, kodim01 binned table", d_bounds["kodim01 binned table"]),
               "2K": ("kernel D, 2K state", d_bounds["2K state"])},
         "e": {tag: (f"kernel E, {'binned fit' if tag == 'fit' else tag} state",
-                    e_bound(*e_states[tag])) for tag in ("fit", "kodim01", "2K")},
+                    e_bound(*e_states[tag])) for tag in ("fit", "kodim01", "2K", "qat")},
     }
     by_state, loss_ms = {}, {}
     for key, rows_ in timed_states.items():
@@ -2768,6 +2823,18 @@ def run() -> None:
     ]
     for row, key in zip(kernel_rows, "abcde"):
         row.update(state_keys(key))
+    kernel_rows.append(dict(
+        name="chunk_lists", route="cuda", source="gaussianimage_plus_tpu_torch/csrc/chunk_lists.cu",
+        replaces="none: the XLA enumeration of gaussianimage_plus_tpu/kernels/raster_list_pallas.py"
+                 ":125 (_member_matrix) and :138 (_chunk_lists)",
+        ms=f_rows["fit state"]["ms"], device_ms=f_rows["fit state"]["device_ms"],
+        plain_ms=f_rows["fit state"]["plain_device_ms"], bound_ms=f_rows["fit state"]["bound_ms"],
+        bound_by=f_rows["fit state"]["bound_by"], library_ms=None,
+        device_ms_by_state={t: r["device_ms"] for t, r in f_rows.items()},
+        plain_device_ms_by_state={t: r["plain_device_ms"] for t, r in f_rows.items()},
+        bound_ms_by_state={t: r["bound_ms"] for t, r in f_rows.items()},
+        shape="; ".join(f"{t}: {r['tiles']} tiles x {r['chunks']} chunks, lmax {r['lmax']}"
+                        for t, r in f_rows.items())))
     report["kernels"] = kernel_rows
     write_report()
     log(entry_line)

@@ -16,7 +16,11 @@ Tile t visits exactly its member chunks ``lst[t, :cnt[t]]`` plus the residual
 interval ``[lo2[t], hi2[t])`` of chunks past the list width ``lmax``, and
 re-tests each row's bbox membership, so the render is exact for any stream
 order and any occupancy, with no per-tile cap. The integer lists equal the
-JAX ones exactly.
+JAX ones exactly. On the card one hand-written kernel pair enumerates them,
+``chunk_lists`` (``csrc/chunk_lists.cu``, kernel F: each row marks its bbox
+tiles' chunk, each tile compacts its marks), where the JAX package and the
+plain version (``chunk_lists_plain``, the CPU path) build the [T, Np]
+membership and reduce it.
 
 The backward is one function on the TPU in three kernels: ``list_backward``
 with ``layout="rows"`` (#6, ``_make_list_bwd_kernel``) or ``"lanes"`` (#7,
@@ -210,17 +214,74 @@ def chunk_list_forward(table, bbox, lst, cnt, lo2, hi2, kc: int,
 chunk_list_forward.launches = 0
 
 
+def chunk_lists_plain(table, bbox, Np: int, kc: int, lmax: int, H: int, W: int):
+    """Plain PyTorch version of kernel F: the [T, Np] membership
+    (``_bbox_members``) reduced to each tile's lists and member-chunk count
+    (``_lists_and_members``)."""
+    tb_x, tb_y = tile_bounds_for(H, W, BLOCK_H, BLOCK_W)
+    return _lists_and_members(_bbox_members(table, bbox, tb_x, tb_x * tb_y), Np, kc, lmax)
+
+
+def _setup_lists(lib):
+    lib.chunk_lists.restype = ctypes.c_int
+    lib.chunk_lists.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def chunk_lists(table, bbox, Np: int, kc: int, lmax: int, H: int, W: int):
+    """Kernel F: table [rows, 16] and bbox [rows, 4] (rows <= Np, Np % kc ==
+    0) -> ((lst [T, lmax], cnt, lo2, hi2), members [T]), int32, integer for
+    integer what ``_lists_and_members`` returns. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (built at first use) or
+    raises, builds no [T, Np] tensor and counts ``lists.kernel_tiles`` (T)
+    while ``utils.profiling.counting()``."""
+    rows = table.shape[0]
+    if kc < 1 or Np % kc or not 0 <= rows <= Np:
+        raise ValueError(f"need kc >= 1, Np % kc == 0 and rows <= Np; got kc {kc}, "
+                         f"Np {Np}, {rows} rows")
+    if lmax < 0:
+        raise ValueError(f"lmax must be >= 0, got {lmax}")
+    if table.dim() != 2 or table.shape[1] != COLS or bbox.shape != (rows, 4):
+        raise ValueError(f"table must be [rows, {COLS}] and bbox [rows, 4], got "
+                         f"{tuple(table.shape)} and {tuple(bbox.shape)}")
+    if table.dtype != torch.float32 or bbox.dtype != torch.float32:
+        raise TypeError("table and bbox must be float32")
+    dev = table.device
+    if bbox.device != dev:
+        raise ValueError("all inputs must be on one device")
+    if dev.type == "cpu":
+        return chunk_lists_plain(table, bbox, Np, kc, lmax, H, W)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not (table.is_contiguous() and bbox.is_contiguous()) or bbox.data_ptr() % 16:
+        raise ValueError("table and bbox must be contiguous, bbox 16-byte aligned")
+    tb_x, tb_y = tile_bounds_for(H, W, BLOCK_H, BLOCK_W)
+    T, nch = tb_x * tb_y, Np // kc
+    lib = _build.load("chunk_lists", _setup_lists)
+    mark = torch.empty((T, nch), dtype=torch.uint8, device=dev)
+    lst = torch.empty((T, lmax), dtype=torch.int32, device=dev)
+    cnt, lo2, hi2, members = torch.empty((4, T), dtype=torch.int32, device=dev).unbind(0)
+    rc = _build.launch(dev, lib.chunk_lists, table.data_ptr(), bbox.data_ptr(), mark.data_ptr(),
+                       lst.data_ptr(), cnt.data_ptr(), lo2.data_ptr(), hi2.data_ptr(),
+                       members.data_ptr(), rows, nch, kc, lmax, tb_x, tb_y)
+    _build.check(rc, "chunk_lists")
+    chunk_lists.launches += 1
+    profiling.count_device("lists.kernel_tiles", T)
+    return (lst, cnt, lo2, hi2), members
+
+
+chunk_lists.launches = 0
+
+
 def member_lists(table, bbox, N: int, Np: int, kc: int, H: int, W: int,
                  lmax: int = None):
     """The chunk-list enumeration: each tile's member chunks, the first
     ``lmax`` listed and the rest as a residual interval -> (lst, cnt, lo2,
-    hi2). While ``utils.profiling.counting()`` it also counts the lists
-    (``_count_lists``); otherwise, and under a capture, it runs only the
-    enumeration."""
+    hi2), through kernel F (``chunk_lists``) on the card and its plain
+    version on the CPU. While ``utils.profiling.counting()`` it also counts
+    the lists (``_count_lists``); otherwise, and under a capture, it runs
+    only the enumeration."""
     lmax = _default_lmax(H, W) if lmax is None else lmax
-    tb_x, tb_y = tile_bounds_for(H, W)
-    member = _bbox_members(table, bbox, tb_x, tb_x * tb_y)
-    lists, members = _lists_and_members(member, Np, kc, lmax)
+    lists, members = chunk_lists(table, bbox, Np, kc, lmax, H, W)
     if profiling.counting():
         _count_lists(lists, members)
     return lists

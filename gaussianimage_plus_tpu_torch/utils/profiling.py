@@ -63,7 +63,9 @@ The spans and counters the port records (where, and what reads them:
   ``lists.member_chunks`` and ``lists.visited_chunks``: per enumeration of
   ``kernels.raster_list.member_lists``, the tiles, those whose member chunks
   exceed the list width, the member chunks, and the chunks kernel B visits
-  (the listed ones and the residual interval).
+  (the listed ones and the residual interval);
+- device counter ``lists.kernel_tiles``: ``kernels.raster_list.chunk_lists``'
+  tiles, per enumeration that ran kernel F (none on the plain path).
 """
 
 from __future__ import annotations

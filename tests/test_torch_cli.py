@@ -213,7 +213,8 @@ def test_profiling_helpers(tmp_path):
     assert {"decode", "decode.parse", "decode.entropy", "decode.dequantize", "decode.render",
             "render.bin"} <= names
     assert trace["launches"] == {"tile_table_forward": 0, "chunk_list_forward": 0,
-                                 "chunk_backward": 0, "tile_table_backward": 0, "tile_bin": 0}
+                                 "chunk_backward": 0, "tile_table_backward": 0, "tile_bin": 0,
+                                 "chunk_lists": 0}
 
 
 @pytest.mark.parametrize("cli", ["train", "train_quantize", "eval_kodak"])

@@ -4,7 +4,12 @@ Kernel A (``tile_table_forward``), kernel B (``chunk_list_forward``),
 kernel C (``chunk_backward``), kernel D (``tile_table_backward``) and kernel
 E (``tile_bin``) on synthetic scenes made with numpy from a seed: a small odd
 tile grid, a crowded tile that overflows a small cap, and a Kodak-size
-768x512 scene.
+768x512 scene. Kernel F (``chunk_lists``, the chunk-list enumeration) on the
+committed Kodak and 2K states, ``fit_image``'s initial rows, crowded tiles
+past the list width and float bboxes no projection makes: its lists
+``torch.equal`` to the plain enumeration's; captured in a CUDA graph and
+replayed on other rows; and a 300-step 2K fit bit-equal with the plain
+enumeration patched in.
 Every test is marked ``cuda`` and skips without a card. This file imports no
 JAX, so it also runs on a machine with PyTorch alone::
 
@@ -343,6 +348,190 @@ def test_chunk_list_forward_every_enumeration(card, enum):
     kw.pop("cap")
     _, out, ref = _forward_both(card, kw, kc, lists)
     _close(out, ref, f"kernel B kodak-size, {enum}")
+
+
+def _state_rows(state, H, W, kc, morton=True):
+    """The table and bbox that a training step's enumeration reads for a
+    ``GaussianState`` (rows in Morton order, as the trainer keeps them)."""
+    from gaussianimage_plus_tpu_torch.core.binning import morton_perm
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+
+    cfg = gi.GaussianConfig(H=H, W=W, max_num_points=state.active.shape[0])
+    if morton:
+        perm = morton_perm(state.params.xyz, state.active, H, W)
+        state = gi.GaussianState(gi.GaussianParams(*(p[perm] for p in state.params)),
+                                 state.active[perm], state.bound[perm], state.num_active)
+    proj = gi.project(state.params, state.active, state.bound, cfg)
+    ones = torch.ones_like(state.params.xyz[:, :1])
+    return raster_list._table_bbox(proj, state.params.features, ones, H, W, kc)
+
+
+def _npz_rows(card, name, kc):
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+
+    d = np.load(ROOT / "results" / name)
+    t = {k: torch.as_tensor(d[k]).to(card) for k in ("xyz", "cov2d", "features", "active",
+                                                      "bound", "num_active")}
+    state = gi.GaussianState(gi.GaussianParams(t["xyz"], t["cov2d"], t["features"]),
+                             t["active"], t["bound"], t["num_active"])
+    H, W = int(d["H"]), int(d["W"])
+    table, bbox, _, Np = _state_rows(state, H, W, kc)
+    return table, bbox, Np, kc, raster_list._default_lmax(H, W), H, W
+
+
+def _initial_rows(card, H, W, n, M, seed):
+    """``fit_image``'s random initial rows, in the order they are drawn."""
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    cfg = gi.GaussianConfig(H=H, W=W, max_num_points=M)
+    ts = tr.init_train_state(cfg, tr.TrainConfig(), n, seed=seed, device=card)
+    table, bbox, _, Np = _state_rows(ts.gaussians, H, W, 128, morton=False)
+    return table, bbox, Np, 128, raster_list._default_lmax(H, W), H, W
+
+
+def _scene_rows(card, kw, kc, lmax):
+    proj, colors, opacity = _scene(**kw)
+    H, W = kw["H"], kw["W"]
+    table, bbox, _, Np = raster_list._table_bbox(proj, colors, opacity, H, W, kc)
+    return table.to(card), bbox.to(card), Np, kc, lmax, H, W
+
+
+def _odd_bboxes(card, H, W, n, seed, kc=64, lmax=4):
+    """Float bboxes that no projection makes: non-integer, negative and
+    off-grid bounds, zero-area and inverted boxes, infinite and NaN bounds,
+    one box over the whole grid, and invalid rows among them."""
+    tb_x, tb_y = -(-W // 16), -(-H // 16)
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(-3, [tb_x + 2, tb_y + 2], (n, 2))
+    ext = rng.choice([0.0, 0.4, 1.0, 2.5, 7.0, -1.0], (n, 2))
+    bbox = np.stack([lo[:, 0], lo[:, 0] + ext[:, 0], lo[:, 1], lo[:, 1] + ext[:, 1]], -1)
+    k = rng.permutation(n)
+    bbox[k[0]] = [-0.5, tb_x + 0.5, -0.5, tb_y + 0.5]          # the whole grid
+    bbox[k[1]] = [-np.inf, np.inf, -np.inf, np.inf]
+    bbox[k[2]] = [np.nan, 3.0, 0.0, 2.0]
+    bbox[k[3]] = [2.0, 2.0, 1.0, 5.0]                          # zero area
+    bbox[k[4]] = [1e9, 2e9, -2e9, -1e9]
+    bbox[k[5:40]] = np.round(bbox[k[5:40]])                    # integer bounds
+    Np = -(-(n + 1) // kc) * kc
+    table = torch.zeros((Np, 16))
+    table[:n, 15] = torch.as_tensor(rng.uniform(size=n) > 0.15, dtype=torch.float32)
+    table[k[:2], 15] = 1.0
+    full = torch.zeros((Np, 4))
+    full[:n] = torch.as_tensor(bbox, dtype=torch.float32)
+    return table.to(card), full.to(card), Np, kc, lmax, H, W
+
+
+# kernel F against the plain enumeration: a converged Kodak state at kc 128
+# and 64 (width 16), the converged 2K state (width 8), fit_image's random
+# initial rows at both grids, a crowded tile at widths 1 and 8 (residual
+# intervals), float bboxes no projection makes at two grids, and fewer
+# chunks than the list width
+F_CASES = {
+    "Kodak state kc 128": lambda c: _npz_rows(c, "repr_states_plain/kodim01.npz", 128),
+    "Kodak state kc 64": lambda c: _npz_rows(c, "repr_states_plain/kodim01.npz", 64),
+    "2K state": lambda c: _npz_rows(c, "repr_states_2k/mosaic2k.npz", 128),
+    "initial rows 768x512": lambda c: _initial_rows(c, 512, 768, 2500, 5000, 41),
+    "initial rows 2040x1344": lambda c: _initial_rows(c, 1344, 2040, 10000, 20000, 42),
+    "crowded lmax 1": lambda c: _scene_rows(c, CROWDED, 64, 1),
+    "crowded lmax 8 kc 32": lambda c: _scene_rows(c, CROWDED, 32, 8),
+    "odd bboxes 45x77": lambda c: _odd_bboxes(c, 45, 77, 900, 50),
+    "odd bboxes 2040x1344": lambda c: _odd_bboxes(c, 1344, 2040, 6000, 51, kc=128, lmax=8),
+    "fewer chunks than lmax": lambda c: _scene_rows(
+        c, dict(n=150, H=45, W=77, seed=0), 64, 16),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(F_CASES))
+def test_chunk_lists_match_plain(card, case):
+    """Kernel F's lists, counts and member counts are ``torch.equal`` to
+    ``_lists_and_members(_bbox_members(...))``, run on the card."""
+    table, bbox, Np, kc, lmax, H, W = F_CASES[case](card)
+    before = raster_list.chunk_lists.launches
+    got = raster_list.chunk_lists(table, bbox, Np, kc, lmax, H, W)
+    assert raster_list.chunk_lists.launches == before + 1
+    tb_x, tb_y = -(-W // 16), -(-H // 16)
+    want = raster_list._lists_and_members(
+        raster_list._bbox_members(table, bbox, tb_x, tb_x * tb_y), Np, kc, lmax)
+    torch.cuda.synchronize()
+    (lst, cnt, lo2, hi2), members = got
+    assert lst.shape == (tb_x * tb_y, lmax) and all(
+        a.dtype == torch.int32 for a in (lst, cnt, lo2, hi2, members))
+    for name, a, b in zip(("lst", "cnt", "lo2", "hi2", "members"),
+                          (*got[0], got[1]), (*want[0], want[1])):
+        assert torch.equal(a, b), f"{case}: {name} differs at {int((a != b).sum())} entries"
+    assert int(members.sum()) > 0, case
+    if case.startswith("crowded"):
+        assert int((hi2 > lo2).sum()) > 0, f"{case}: no residual interval"
+    if case == "fewer chunks than lmax":
+        assert Np // kc < lmax
+
+
+@pytest.mark.cuda
+def test_chunk_lists_replay_in_a_cuda_graph(card):
+    """``member_lists`` captured in a CUDA graph, replayed on other rows
+    copied into its static inputs, gives the eager lists, and syncs with
+    nothing."""
+    kw = dict(SCENES["kodak-size"])
+    kw.pop("cap")
+    first = _scene_rows(card, kw, 128, 16)
+    second = _scene_rows(card, {**kw, "seed": 7}, 128, 16)
+    table, bbox, Np, kc, lmax, H, W = first
+    static_table, static_bbox = table.clone(), bbox.clone()
+    args = (Np - 1, Np, kc, H, W, lmax)
+    raster_list.member_lists(static_table, static_bbox, *args)      # builds the kernel
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    replays, eager = [], []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.graph(graph):
+            out = raster_list.member_lists(static_table, static_bbox, *args)
+        for rows in (second, first):
+            static_table.copy_(rows[0])
+            static_bbox.copy_(rows[1])
+            graph.replay()
+            replays.append([a.clone() for a in out])
+            eager.append(raster_list.member_lists(rows[0], rows[1], *args))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert not torch.equal(eager[0][0], eager[1][0])
+    for got, want in zip(replays, eager):
+        assert all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+
+
+@pytest.mark.cuda
+def test_2k_fit_is_bit_equal_with_the_plain_enumeration(card, monkeypatch):
+    """A 300-step 2040x1344 fit through ``'auto'`` (list_t, graphed chunks,
+    growth at 100 and 200) gives the same losses, history and best state
+    with kernel F as with the plain enumeration's ATen operations on the
+    card, patched in for the second fit."""
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    gt, cfg, tcfg, ts0 = _kodak_fit_case(card, H=1344, W=2040)
+    tcfg = dataclasses.replace(tcfg, iterations=300)
+    assert tr.captures(cfg, card)
+    before = [k.launches for k in (raster_list.chunk_lists, raster_list.chunk_list_forward,
+                                   raster_list.chunk_backward)]
+    res = tr.fit_image(gt, cfg, tcfg, 2500, gaussians=ts0.gaussians)
+    f, b, c = (k.launches - n for k, n in zip(
+        (raster_list.chunk_lists, raster_list.chunk_list_forward, raster_list.chunk_backward),
+        before))
+    assert c == 300 and f == b >= 300
+
+    def plain(*args):
+        return raster_list.chunk_lists_plain(*args)
+
+    plain.launches = 0
+    monkeypatch.setattr(raster_list, "chunk_lists", plain)
+    ref = tr.fit_image(gt, cfg, tcfg, 2500, gaussians=ts0.gaussians)
+    assert plain.launches == 0
+    assert torch.equal(res.history["loss"], ref.history["loss"])
+    for key in res.history:
+        assert torch.equal(res.history[key], ref.history[key]), key
+    _assert_trees_equal(res.state, ref.state, "best state")
 
 
 # kernel D: invalid rows and a Gaussian over the whole grid on the ragged
@@ -993,7 +1182,7 @@ def test_graphed_decode_is_bit_equal(card):
     assert second["decode.graph_replays"] == first["decode.graph_replays"] + 50
     before = [k.launches for k in wrappers()]
     _decode(decs[0], cfgs[0])
-    assert [k.launches - b for k, b in zip(wrappers(), before)] == [1, 0, 0, 0, 1]
+    assert [k.launches - b for k, b in zip(wrappers(), before)] == [1, 0, 0, 0, 1, 0]
 
 
 @pytest.mark.cuda
