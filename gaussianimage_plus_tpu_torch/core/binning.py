@@ -96,8 +96,8 @@ def select_members(member: torch.Tensor, cap: int, method: str = "top_k") -> Til
     selects the same members, so the tier is only a speed choice, and
     reading it on the host here would sync the step. ``'top_k'`` therefore
     runs the rank search, the fastest exact selection on the card, in ms a
-    call in a CUDA graph (``scripts/torch_select_members.py``; NVIDIA H100
-    80GB HBM3, 700.00 W):
+    call in a CUDA graph (``git show c42ea5d:scripts/torch_select_members.py``;
+    NVIDIA H100 80GB HBM3, 700.00 W):
 
     - odd-grid fit state ``[1457, 5000]``, cap 256: 0.2030; ``torch.topk``
       at ``min(cap, N)`` 0.2607, the scatter 0.3299 (``torch.topk`` at the

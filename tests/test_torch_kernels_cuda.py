@@ -46,6 +46,19 @@ never synchronises with the host; an input that requires grad decodes
 eagerly; and the benchmark's decode faults (``portbench/control.py``) fail
 ``rms_gap`` through the replays.
 
+The main paths on the card, from the committed fixtures: each of the 57
+streams decoded three ways and each of the 48 fitted states rendered
+through every kernel route, agreeing with each other; the dense and sweep
+gradients against list_t's; ``fit_image`` from random rows at 768x512
+(``'auto'``, ``'pallas'`` + kernel E), on the odd grid and at 2040x1344
+(``'auto'``, ``'pallas'`` + ``'hier'``), and the coding path after the
+768x512 fit, graphed against their eager schedules; 100 steps of
+``'auto'``, ``'pallas'`` and QAT each within 0.05 dB of ``'xla'``; the
+coding path writing and decoding back its ``.gipb``; the fit,
+quantize and eval CLIs with stop and resume; the Cholesky model with Adan;
+``fit_batch`` and the tile-sharded paths in a NCCL group of one; the 3DGS
+model and ``pixel_count_map`` against the CPU.
+
 Kernel A reads its tile's rows of the attribute table through the slot
 ids, 128 at a time, and gives a thread 2 pixels of one column; besides the
 shared scenes it runs on the binned fit state's shape (a tile of ~150 live
@@ -588,6 +601,29 @@ def test_tile_table_backward_hard_cases(card, case):
 
 
 @pytest.mark.cuda
+def test_tile_table_backward_2k_grid(card):
+    """Kernel D on a 2040x1344 grid (10,752 tiles, 20,000 small Gaussians,
+    cap 256) against its plain version run on the card, per column as
+    above, and two launches against each other."""
+    kw = dict(A_SCENES["2K-size grid"])
+    cap = kw.pop("cap")
+    proj, colors, opacity = _scene(**kw)
+    H, W = kw["H"], kw["W"]
+    bins = bin_gaussians(proj, H, W, cap=cap)
+    table, ids, counts = raster_binned._slot_table(proj.xys, proj.conics, colors, opacity,
+                                                   bins.ids, bins.mask)
+    bbox = raster_binned.tile_bbox_table(proj.xys, proj.radii, (-(-W // 16), -(-H // 16)))
+    v_img = torch.as_tensor(np.random.default_rng(25).normal(size=(H, W, 3)).astype(np.float32))
+    args = [a.contiguous().to(card) for a in (table, counts, ids, bbox, v_img)]
+    ref = raster_binned.tile_table_backward_plain(*args)
+    out = raster_binned.tile_table_backward(*args)
+    again = raster_binned.tile_table_backward(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), "kernel D 2K: two launches differ"
+    _payload_close(out, ref.cpu(), "kernel D 2K grid")
+
+
+@pytest.mark.cuda
 def test_tile_table_backward_clamps_counts(card):
     """counts past K read K slots, negative counts none, as the plain version."""
     args = _binned_inputs("odd-grid", "cpu")
@@ -994,12 +1030,16 @@ def test_graphed_quant_macro_chunk_is_bit_equal(card, color_quant, grid):
     qcfg = pl.QuantConfig(color_quant=color_quant)
     bundle = pl.init_quantizers(state, cfg, qcfg)
     mos = tr.make_optimizer(tcfg).init(state.params)
+    before = _launches()
     a = pl.quant_train_macro_chunk(state, mos, bundle, gt, cfg, qcfg, 0.01, 3, 20)
+    graphed, before = _since(before), _launches()
     b, best, psnrs = (state, mos, bundle), None, []
     for _ in range(3):
         *b, m = pl.quant_train_chunk(*b, gt, cfg, qcfg, 0.01, 20, best=best)
         best = m["best"]
         psnrs.append(m["psnr"])
+    eager = _since(before)        # the graphed run adds a warm-up chunk on a clone
+    assert all(graphed[k] * 3 == eager[k] * 4 for k in eager), (graphed, eager)
     _assert_trees_equal(a[:3], tuple(b), "QAT state")
     _assert_trees_equal(a[3]["best"], best, "best carry")
     assert torch.equal(a[3]["psnr"], torch.cat(psnrs))
@@ -1269,3 +1309,798 @@ def test_decode_faults_fail_through_the_graph(card, fault):
         profiling.reset()
     assert replays == 2
     assert mod.rms(sound, ref) <= limit < mod.rms(bad, ref)
+
+
+# ---- the main paths on the card: every committed stream and fitted state,
+# the fits from random rows on each kernel route, the coding path, the
+# entry points, parallel/ in a NCCL group of one and the 3DGS model. The
+# tolerances are the kernels' above (ATOL, RTOL, MAX_FRAC for images, 1e-4 of
+# a column's max for gradients) and 0.05 dB between two routes' PSNRs.
+
+ALL_STREAMS = sorted((ROOT / "results").glob("bitstreams*/*.gipb"))
+ALL_STATES = sorted(p for d in ("repr_states_cn", "repr_states_plain")
+                    for p in (ROOT / "results" / d).glob("*.npz"))
+KODIM01 = ROOT / "results" / "repr_states_plain" / "kodim01.npz"
+FIT_SEED, FIT_POINTS, AGREE_DB = 3047, 2500, 0.05
+
+
+def _launches():
+    from gaussianimage_plus_tpu_torch.kernels import wrappers
+
+    return dict(zip("abcdef", (k.launches for k in wrappers())))
+
+
+def _since(before):
+    return {k: n - before[k] for k, n in _launches().items()}
+
+
+def _valid(img, shape, what):
+    assert tuple(img.shape) == shape and img.dtype == torch.float32, f"{what}: {img.shape}"
+    assert bool(torch.isfinite(img).all()), f"{what}: non-finite pixels"
+    assert float(img.min()) >= 0.0 and float(img.max()) <= 1.0, f"{what}: outside [0, 1]"
+
+
+def _overflows(proj, cfg):
+    """Some tile has more members than the cap, so capped and cap-free
+    renders differ."""
+    return int(bin_gaussians(proj, cfg.H, cfg.W, cap=cfg.tile_cap + 1).count.max()) > cfg.tile_cap
+
+
+def _npz_state(path, dev):
+    from gaussianimage_plus_tpu_torch.interop import config_from_numpy, state_from_numpy
+
+    d = dict(np.load(path))
+    return state_from_numpy(d, device=dev), config_from_numpy(d)
+
+
+def _kodim01_target(dev):
+    """The port's render of ``repr_states_plain/kodim01.npz`` (768x512)."""
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+
+    state, cfg = _npz_state(KODIM01, dev)
+    with torch.no_grad():
+        return gi.render(state, cfg).contiguous()
+
+
+def _stream_cfg(dec):
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+
+    return gi.GaussianConfig(H=dec.H, W=dec.W, max_num_points=dec.enc.active.shape[0],
+                             tile_cap=dec.qcfg.decode_cap or 256)
+
+
+def _stream_rows(dec, cfg):
+    """(projection, colours) of a parsed stream's dequantized rows."""
+    from gaussianimage_plus_tpu_torch.compress.pipeline import _decode_attributes
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+
+    means, cov, colors = _decode_attributes(dec.bundle, dec.enc, dec.qcfg)
+    return gi.project(None, dec.enc.active, dec.bound, cfg, cov_override=cov,
+                      means_override=means), colors
+
+
+def _decoded_three_ways(data, dev):
+    """The binned decode (kernels E and A), ``prepare_decode`` +
+    ``decode_frame`` (A) and ``backend='list_t'`` (B) of one stream: their
+    images, each checked, and the parsed stream and its config."""
+    from gaussianimage_plus_tpu_torch.compress.bitstream import decode_bitstream
+    from gaussianimage_plus_tpu_torch.compress.pipeline import decode_frame, prepare_decode
+
+    img, dec = decode_bitstream(data, device=dev)
+    cfg = _stream_cfg(dec)
+    frame = decode_frame(prepare_decode(dec.bundle, dec.enc, dec.bound, cfg, dec.qcfg), cfg)
+    img_l, _ = decode_bitstream(data, backend="list_t", device=dev)
+    for what, im in (("binned", img), ("decode_frame", frame), ("list_t", img_l)):
+        _valid(im, (dec.H, dec.W, 3), what)
+    _close(frame, img.cpu(), "decode_frame vs the binned decode")
+    if not _overflows(_stream_rows(dec, cfg)[0], cfg):
+        _close(img_l, img.cpu(), "list_t vs the binned decode")
+    return img, dec, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ALL_STREAMS, ids=[f"{p.parent.name}/{p.stem}" for p in ALL_STREAMS])
+def test_every_stream_decodes_on_the_card(card, path):
+    """Each committed stream (48 LSQ Kodak streams of rounds 3 and 4, 6 with
+    VQ colour, 3 of format v1) decoded three ways on the card
+    (``_decoded_three_ways``), kernel A launched twice and B once; kodim01's
+    binned decode also against the dense oracle (``core/render_dense.py``, the reference's direct form):
+    at least 80 dB, no pixel off by more than 5e-3, at most 1% beyond 2e-5."""
+    from gaussianimage_plus_tpu_torch.core.render_dense import render_dense
+
+    assert len(ALL_STREAMS) == 57 and len(ALL_STATES) == 48
+    data = path.read_bytes()
+    before = _launches()
+    img, dec, cfg = _decoded_three_ways(data, card)
+    n = _since(before)
+    assert n["a"] == 2 and n["b"] == 1, n
+    if path.parent.name == "bitstreams_r4" and path.stem == "kodim01":
+        proj, colors = _stream_rows(dec, cfg)
+        ones = torch.ones((cfg.max_num_points,), device=card)
+        d = (img - render_dense(proj, colors, ones, cfg.H, cfg.W, tile_cap=cfg.tile_cap,
+                                band_rows=16)).abs()
+        psnr = 10 * np.log10(1.0 / max(float((d ** 2).mean()), 1e-20))
+        assert psnr >= 80.0 and float(d.max()) <= 5e-3, (psnr, float(d.max()))
+        assert float((d > ATOL).any(-1).float().mean()) <= 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ALL_STATES, ids=[f"{p.parent.name}/{p.stem}" for p in ALL_STATES])
+def test_every_fitted_state_renders_on_the_card(card, path):
+    """Each committed fitted state through ``render`` with ``'auto'``
+    (list_t: kernel B) and ``'pallas'`` (kernel A), and ``render_fast``
+    through the list_t, dense, sweep and range enumerations (B once each):
+    finite images in [0, 1]; dense, sweep and range agree with list_t;
+    where no tile overflows the cap, ``'auto'`` agrees with ``'pallas'``."""
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+
+    state, cfg = _npz_state(path, card)
+    assert gi.resolve_backend(cfg, card) == "list_t"
+    shape = (cfg.H, cfg.W, 3)
+    before = _launches()
+    with torch.no_grad():
+        img = gi.render(state, cfg)
+        img_p = gi.render(state, dataclasses.replace(cfg, raster_backend="pallas"))
+    n = _since(before)
+    assert n["a"] == n["b"] == 1, n
+    _valid(img, shape, "'auto'")
+    fast = {}
+    for name, sweep in (("list_t", "list_t"), ("dense", False), ("sweep", True), ("range", "range")):
+        before = _launches()
+        with torch.no_grad():
+            fast[name] = gi.render_fast(state, cfg, sweep=sweep)
+        assert _since(before)["b"] == 1, name
+        _valid(fast[name], shape, name)
+    for name in ("dense", "sweep", "range"):
+        _close(fast[name], fast["list_t"].cpu(), f"{name} vs list_t")
+    if not _overflows(gi.project(state.params, state.active, state.bound, cfg), cfg):
+        _close(img, img_p.cpu(), "'auto' vs 'pallas'")
+
+
+@pytest.mark.cuda
+def test_dense_and_sweep_gradients_match_list_t(card):
+    """The L2 loss's gradients of a fitted state through ``render`` with
+    ``'dense'`` and ``'sweep'`` (kernel C on their tables) against
+    ``'list_t'``'s, per parameter column: max |a - b| <= 1e-4 max |list_t|;
+    B and C once each a route."""
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+
+    state, cfg = _npz_state(ALL_STATES[0], card)
+    gt = _kodim01_target(card)
+
+    def grads(backend):
+        params = gi.GaussianParams(*(p.detach().clone().requires_grad_(True) for p in state.params))
+        img = gi.render(state._replace(params=params), dataclasses.replace(cfg, raster_backend=backend))
+        return torch.autograd.grad(torch.mean((img - gt) ** 2), params)
+
+    before = _launches()
+    ref = grads("list_t")
+    for backend in ("dense", "sweep"):
+        for a, b, name in zip(grads(backend), ref, ("xyz", "cov2d", "features")):
+            err, scale = (a - b).abs().amax(0), b.abs().amax(0)
+            assert bool((err <= 1e-4 * scale).all()), f"{backend} {name}: {err} vs {scale}"
+    n = _since(before)
+    assert n["b"] == n["c"] == 3, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["dense", "sweep"])
+def test_graphed_dense_and_sweep_chunks_are_bit_equal(card, backend):
+    """A ``train_macro_chunk`` of 3 x 20 steps with a prune each (replays,
+    warmed up on a clone) through ``'dense'`` and ``'sweep'`` (B + C) at a
+    fitted state equals three eager ``train_chunk`` calls: the train state,
+    the losses and PSNRs, and the launches beyond the warm-up chunk."""
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    state, cfg = _npz_state(ALL_STATES[0], card)
+    cfg = dataclasses.replace(cfg, raster_backend=backend)
+    gt = _kodim01_target(card)
+    assert tr.captures(cfg, card)
+    tcfg = tr.TrainConfig(prune_iter=20)
+    ts0 = tr.init_train_state(cfg, tcfg, 0, gaussians=state)
+    before = _launches()
+    a, ma = tr.train_macro_chunk(ts0, gt, cfg, tcfg, 3, 20, True, False)
+    graphed, before = _since(before), _launches()
+    b, losses, psnrs = ts0, [], []
+    for _ in range(3):
+        b, mb = tr.train_chunk(b, gt, cfg, tcfg, 20, True, False)
+        losses.append(mb["loss"])
+        psnrs.append(mb["psnr"])
+    eager = _since(before)
+    assert all(graphed[k] * 3 == eager[k] * 4 for k in eager) and eager["c"] == 60, (graphed, eager)
+    _assert_trees_equal(a, b, "train state")
+    assert torch.equal(ma["loss"], torch.cat(losses)) and torch.equal(ma["psnr"], torch.cat(psnrs))
+
+
+def _block_target(H, W):
+    """``bench.py``'s seeded block image, made with numpy."""
+    blocks = np.random.default_rng(1).uniform(0, 1, (-(-H // 16), -(-W // 16), 3))
+    return np.kron(blocks, np.ones((16, 16, 1)))[:H, :W].astype(np.float32)
+
+
+# fit_image from seeded random rows at the schedules that reach the per-kernel
+# timer's states (chip_smoke.py): (grid, config, schedule, points, rise in dB,
+# the kernels launched once a step). The 768x512 and 752x496 targets are the
+# render of kodim01's state (its top-left crop, 47 x 31 tiles); the 2040x1344
+# ones the render of the converged mosaic2k.npz ('auto', 10,000 of its 20,000
+# rows) and the seeded block image ('pallas', 'auto' binning picking 'hier')
+FITS = {
+    "768x512 'auto'": (
+        (512, 768), {}, dict(iterations=1000, prune_iter=100, grow_iter=500), FIT_POINTS, 5.0,
+        "c"),
+    "768x512 'pallas' + kernel E": (
+        (512, 768), dict(raster_backend="pallas", bin_method="pallas"),
+        dict(iterations=1000, prune_iter=100, grow_iter=500), FIT_POINTS, 5.0, "ade"),
+    "752x496 'auto' ('pallas' + 'top_k')": (
+        (496, 752), {}, dict(iterations=200, prune_iter=100), FIT_POINTS, 3.0, "ad"),
+    "2040x1344 'auto'": (
+        (1344, 2040), {}, dict(iterations=100, prune_iter=50), 10_000, 1.0, "c"),
+    "2040x1344 'pallas' + 'hier'": (
+        (1344, 2040), dict(raster_backend="pallas", max_num_points=20_000),
+        dict(iterations=100, prune_iter=50), 20_000, 0.0, "ad"),
+}
+
+
+def _fit_case(card, case):
+    """(target, config, train config, initial points) of ``FITS[case]``."""
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    (H, W), kw, fit, points, _, _ = FITS[case]
+    if case == "2040x1344 'auto'":
+        state, cfg = _npz_state(ROOT / "results" / "repr_states_2k" / "mosaic2k.npz", card)
+        assert gi.resolve_backend(cfg, card) == "list_t"
+        with torch.no_grad():
+            gt = gi.render(state, cfg).contiguous()
+    elif H == 1344:
+        cfg = gi.GaussianConfig(H=H, W=W, **kw)
+        gt = torch.as_tensor(_block_target(H, W), device=card)
+        g = tr.init_train_state(cfg, tr.TrainConfig(), points, seed=FIT_SEED, device=card).gaussians
+        bins = bin_gaussians(gi.project(g.params, g.active, g.bound, cfg), H, W, cap=cfg.tile_cap,
+                             method=cfg.bin_method)
+        assert bins.super_overflow is not None, "bin_method='auto' did not pick 'hier'"
+    else:
+        cfg = gi.GaussianConfig(H=H, W=W, **kw)
+        gt = _kodim01_target(card)[:H, :W].contiguous()
+        assert gi.resolve_backend(cfg, card) == ("list_t" if case == "768x512 'auto'" else "pallas")
+    return gt, cfg, tr.TrainConfig(**fit), points
+
+
+def _eager_fit(gt, cfg, tcfg, points):
+    """``fit_image``'s schedule (a prune every ``prune_iter``, the growth at
+    each grow period's end but the last, the final fill at ``iterations -
+    grow_iter``) run chunk by chunk through ``train_chunk``, eagerly, from
+    ``fit_image``'s initial state: (last train state, history)."""
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    ts = tr.init_train_state(cfg, tcfg, points, seed=FIT_SEED, device=gt.device)
+    hist = {"loss": [], "psnr": [], "n_pruned": [], "n_added": [], "num_active": []}
+    for end in range(tcfg.prune_iter, tcfg.iterations + 1, tcfg.prune_iter):
+        grow = tcfg.adaptive_add and end % tcfg.grow_iter == 0 and end < tcfg.iterations
+        ts, m = tr.train_chunk(ts, gt, cfg, tcfg, tcfg.prune_iter, tcfg.prune, grow,
+                               end == tcfg.iterations - tcfg.grow_iter)
+        for key in ("loss", "psnr"):
+            hist[key].append(m[key])
+        hist["n_pruned"].append(m["n_pruned"][None])
+        hist["n_added"].append(m["n_added"][None])
+        hist["num_active"].append(ts.gaussians.num_active[None])
+    return ts, {k: torch.cat(v) for k, v in hist.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FITS))
+def test_fit_image_on_the_card(card, case):
+    """``fit_image`` on each of ``FITS``, graphed: its best state, history,
+    best PSNR and step, and launch counts equal the same schedule run
+    eagerly (``_eager_fit``); finite losses and PSNRs, the best PSNR the
+    case's rise above the first step's, the growth adding rows where the
+    schedule grows, and the route's kernels once a step."""
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    gt, cfg, tcfg, points = _fit_case(card, case)
+    assert tr.captures(cfg, card)
+    before = _launches()
+    res = tr.fit_image(gt, cfg, tcfg, points, seed=FIT_SEED, device=card)
+    graphed, before = _since(before), _launches()
+    ts, hist = _eager_fit(gt, cfg, tcfg, points)
+    assert _since(before) == graphed, graphed
+    assert all(graphed[k] == tcfg.iterations for k in FITS[case][5]), graphed
+    for key, v in hist.items():
+        assert torch.equal(res.history[key], v), key
+    _assert_trees_equal(res.state, tr.restore_best(ts), "best state")
+    assert res.best_psnr == float(ts.best_psnr) and res.best_iter == int(ts.best_iter)
+    loss, psnr = res.history["loss"], res.history["psnr"]
+    assert bool(torch.isfinite(loss).all() and torch.isfinite(psnr).all())
+    assert res.best_psnr >= float(psnr[0]) + FITS[case][4], (res.best_psnr, float(psnr[0]))
+    if tcfg.grow_iter < tcfg.iterations:
+        g = tcfg.grow_iter // tcfg.prune_iter - 1                  # the chunk that grows
+        assert int(res.history["n_added"][g]) > 0
+
+
+@pytest.mark.cuda
+def test_graphed_coding_path_is_bit_equal(card):
+    """``fit_image_quantized`` (100 warmup and 1000 QAT steps, a prune every
+    100) from the state of the 768x512 ``'auto'`` fit of ``FITS`` equals its
+    schedule run eagerly (``train_chunk`` for the warmup, then
+    ``quant_train_chunk`` carrying ``best``): the state, the quantizers, the
+    warmup and QAT PSNRs, the losses and the best PSNR."""
+    from gaussianimage_plus_tpu_torch.compress import pipeline as pl
+    from gaussianimage_plus_tpu_torch.compress import trainer as ctr
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    gt, cfg, tcfg, points = _fit_case(card, "768x512 'auto'")
+    init = tr.fit_image(gt, cfg, tcfg, points, seed=FIT_SEED, device=card).state
+    qcfg, warm = pl.QuantConfig(), 100
+    tq = tr.TrainConfig(iterations=warm + 1000, prune_iter=100)
+    res = ctr.fit_image_quantized(gt, cfg, tq, qcfg, points, warmup_iter=warm, seed=FIT_SEED,
+                                  init_state=init)
+    ts, warm_psnr = tr.init_train_state(cfg, tq, points, FIT_SEED, gaussians=init), []
+    for _ in range(warm // tq.prune_iter):
+        ts, m = tr.train_chunk(ts, gt, cfg, tq, tq.prune_iter, tq.prune, False)
+        warm_psnr.append(m["psnr"])
+    state = tr.restore_best(ts)
+    lr = tq.lr * tq.lr_gamma ** (warm // tq.lr_step_size)
+    carry = [state, tr.make_adam(lr, tq.lr_step_size, tq.lr_gamma).init(state.params),
+             pl.init_quantizers(state, cfg, qcfg, generator=ts.generator)]
+    best, psnrs, losses = None, [], []
+    for _ in range((tq.iterations - warm) // tq.prune_iter):
+        *carry, m = pl.quant_train_chunk(*carry, gt, cfg, qcfg, lr, tq.prune_iter, best=best)
+        best = m["best"]
+        psnrs.append(m["psnr"])
+        losses.append(m["loss"])
+    _assert_trees_equal(res.state, carry[0]._replace(params=best[1]), "state")
+    _assert_trees_equal(res.bundle, carry[2]._replace(xy=best[2][0], cov=best[2][1],
+                                                      color=best[2][2], color_vq=best[3]),
+                        "quantizers")
+    for key, parts in (("warmup_psnr", warm_psnr), ("psnr", psnrs), ("loss", losses)):
+        assert torch.equal(res.metrics[key], torch.cat(parts)), key
+    assert res.best_psnr == float(best[0])
+
+
+@pytest.mark.cuda
+def test_graphed_quant_chunks_at_the_odd_grid_fit_state(card):
+    """``quant_train_macro_chunk`` (3 chunks of 20 QAT steps, learning rate
+    0.018, ``'pallas'`` + ``'top_k'``) from the state of the 752x496 fit of
+    ``FITS`` equals three ``quant_train_chunk`` calls carrying ``best``: the
+    QAT state, the best carry, the PSNRs, and the launches beyond the
+    graphed run's warm-up chunk on a clone."""
+    from gaussianimage_plus_tpu_torch.compress import pipeline as pl
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    gt, cfg, tcfg, points = _fit_case(card, "752x496 'auto' ('pallas' + 'top_k')")
+    state = tr.fit_image(gt, cfg, tcfg, points, seed=FIT_SEED, device=card).state
+    assert tr.captures(cfg, card)
+    qcfg = pl.QuantConfig()
+    bundle = pl.init_quantizers(state, cfg, qcfg)
+    mos = tr.make_optimizer(tr.TrainConfig(iterations=1100, prune_iter=100)).init(state.params)
+    before = _launches()
+    a = pl.quant_train_macro_chunk(state, mos, bundle, gt, cfg, qcfg, 0.018, 3, 20)
+    graphed, before = _since(before), _launches()
+    b, best, psnrs = (state, mos, bundle), None, []
+    for _ in range(3):
+        *b, m = pl.quant_train_chunk(*b, gt, cfg, qcfg, 0.018, 20, best=best)
+        best = m["best"]
+        psnrs.append(m["psnr"])
+    eager = _since(before)
+    assert all(graphed[k] * 3 == eager[k] * 4 for k in eager) and eager["d"] == 60, (graphed, eager)
+    _assert_trees_equal(a[:3], tuple(b), "QAT state")
+    _assert_trees_equal(a[3]["best"], best, "best carry")
+    assert torch.equal(a[3]["psnr"], torch.cat(psnrs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["auto", "pallas + kernel E"])
+def test_fit_steps_agree_with_xla(card, route):
+    """100 steps at 768x512 from one initial state (2500 Gaussians, no tile
+    over the cap 256) through ``'auto'`` (B + C) or ``'pallas'`` + kernel E
+    (A, D and E once a step) and through ``'xla'`` (the plain binned path
+    and its VJP): their PSNRs within 0.05 dB at every step."""
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    gt = _kodim01_target(card)
+    cfg = gi.GaussianConfig()
+    tcfg = tr.TrainConfig(iterations=1000, prune_iter=100, grow_iter=500)
+    ts0 = tr.init_train_state(cfg, tcfg, FIT_POINTS, seed=FIT_SEED + 1, device=card)
+    g0 = ts0.gaussians
+    assert not _overflows(gi.project(g0.params, g0.active, g0.bound, cfg), cfg)
+    kw = dict(raster_backend="pallas", bin_method="pallas") if route != "auto" else {}
+    assert gi.resolve_backend(dataclasses.replace(cfg, **kw), card) == (
+        "list_t" if route == "auto" else "pallas")
+    before = _launches()
+    _, m = tr.train_chunk(ts0, gt, dataclasses.replace(cfg, **kw), tcfg, 100, False, False)
+    n = _since(before)
+    _, m_x = tr.train_chunk(ts0, gt, dataclasses.replace(cfg, raster_backend="xla"), tcfg, 100,
+                            False, False)
+    if route == "auto":
+        assert n["c"] == 100 and n["b"] >= 100, n
+    else:
+        assert n["a"] == n["d"] == n["e"] == 100, n
+    gap = float((m["psnr"] - m_x["psnr"]).abs().max())
+    assert gap <= AGREE_DB, f"{route} and 'xla' differ by {gap:.3g} dB"
+
+
+def _coding_start(dev):
+    """kodim01's fitted state, the render it was fitted to, and its config."""
+    state, cfg = _npz_state(KODIM01, dev)
+    return state, _kodim01_target(dev), cfg
+
+
+@pytest.mark.cuda
+def test_qat_steps_agree_with_xla(card):
+    """100 QAT steps, each through ``'auto'`` (B + C) and through ``'xla'``
+    from the plain path's state (free runs part: a code at a half-integer
+    tie rounds either way once float32 sums differ in the last bits): the
+    PSNR of the step's render and of the state it makes within 0.05 dB."""
+    from gaussianimage_plus_tpu_torch.compress import pipeline as pl
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+    from gaussianimage_plus_tpu_torch.train.metrics import psnr
+
+    state, gt, cfg = _coding_start(card)
+    assert gi.resolve_backend(cfg, card) == "list_t"
+    assert not _overflows(gi.project(state.params, state.active, state.bound, cfg), cfg)
+    qcfg, tcfg = pl.QuantConfig(), tr.TrainConfig(prune_iter=100)
+    cfg_x = dataclasses.replace(cfg, raster_backend="xla")
+    carry = (state, tr.make_optimizer(tcfg).init(state.params), pl.init_quantizers(state, cfg_x, qcfg),
+             None)
+    gaps = []
+    before = _launches()
+    for _ in range(100):
+        s, mo, b, best = carry
+        s_a, _, b_a, m_a = pl.quant_train_chunk(s, mo, b, gt, cfg, qcfg, tcfg.lr, 1, best=best)
+        s_x, mo_x, b_x, m_x = pl.quant_train_chunk(s, mo, b, gt, cfg_x, qcfg, tcfg.lr, 1, best=best)
+        with torch.no_grad():
+            nxt = [psnr(pl.render_quantized(b_, s_, cfg_x, qcfg)[0], gt)
+                   for b_, s_ in ((b_a, s_a), (b_x, s_x))]
+        gaps += [float((m_a["psnr"][0] - m_x["psnr"][0]).abs()), float((nxt[0] - nxt[1]).abs())]
+        carry = (s_x, mo_x, b_x, m_x["best"])
+    n = _since(before)
+    assert n["c"] == 100 and n["b"] >= 100, n
+    assert max(gaps) <= AGREE_DB, f"'auto' and 'xla' QAT steps differ by {max(gaps):.3g} dB"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("color_quant", ["lsq", "vq"])
+def test_coding_path_on_the_card(card, tmp_path, color_quant):
+    """``fit_image_quantized`` from kodim01's fitted state through ``'auto'``
+    (LSQ: 100 warmup and 200 QAT steps; VQ colour: 200 QAT steps; kernel C
+    once a step), then ``encode_decode_eval`` writing the ``.gipb`` (LSQ in
+    id and Morton order): ``bpp`` is ``analysis_wo_ec``'s formula and
+    ``bpp_stream`` under it, the stream decodes to the encoding's PSNR
+    (within 1e-4 dB, 1e-3 in Morton order), which is within 0.05 dB of the
+    best QAT PSNR, and the stream decodes three ways (``_decoded_three_ways``);
+    ``evaluate`` of the QAT state."""
+    from gaussianimage_plus_tpu_torch.compress import pipeline as pl
+    from gaussianimage_plus_tpu_torch.compress import trainer as ctr
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    state, gt, cfg = _coding_start(card)
+    qcfg = pl.QuantConfig(color_quant=color_quant)
+    warm, qat = (100, 200) if color_quant == "lsq" else (0, 200)
+    before = _launches()
+    res = ctr.fit_image_quantized(gt, cfg, tr.TrainConfig(iterations=warm + qat, prune_iter=100),
+                                  qcfg, FIT_POINTS, warmup_iter=warm, seed=FIT_SEED,
+                                  init_state=state)
+    n = _since(before)
+    p = res.metrics["psnr"]
+    assert p.shape == (qat,) and bool(torch.isfinite(p).all())
+    assert n["c"] == warm + qat and n["b"] >= warm + qat, n
+    assert res.best_psnr >= float(p[0])
+    for order in ("id", "morton") if color_quant == "lsq" else ("id",):
+        path = tmp_path / f"kodim01_{order}.gipb"
+        stats = ctr.encode_decode_eval(res.state, res.bundle, gt, cfg, qcfg, n_renders=1,
+                                       write_bitstream=str(path), stream_order=order)
+        before = _launches()
+        _, dec, _ = _decoded_three_ways(path.read_bytes(), card)
+        n = _since(before)
+        assert n["a"] > 0 and n["b"] > 0, n
+        assert dec.qcfg.color_quant == color_quant
+        assert np.isfinite(stats["psnr"])
+        assert abs(stats["stream_psnr"] - stats["psnr"]) <= (1e-4 if order == "id" else 1e-3)
+        if color_quant == "lsq":
+            pts = stats["num_points"]
+            bpp = ((pts * 2 * qcfg.xy_bit + 128) + (pts * 3 * qcfg.cov_bit + 192)
+                   + (pts * 3 * qcfg.color_bit + 192)) / (cfg.H * cfg.W)
+            assert abs(stats["bpp"] - bpp) <= 1e-12 and stats["bpp_stream"] < stats["bpp"], stats
+            assert abs(stats["psnr"] - res.best_psnr) <= AGREE_DB, (stats["psnr"], res.best_psnr)
+    if color_quant == "lsq":
+        ev = tr.evaluate(res.state, gt, cfg, n_renders=1)
+        assert np.isfinite(ev["psnr"]) and 0 < ev["ms_ssim"] <= 1, ev
+
+
+def _same_state(a, b):
+    return (all(torch.equal(x, y) for x, y in zip(a.params, b.params))
+            and torch.equal(a.active, b.active) and torch.equal(a.num_active, b.num_active))
+
+
+# the entry points' schedule: 1000 steps, 2500 -> 5000 points, the growth at
+# 500, a stop at 300 before it; the quantize CLI's warmup and QAT steps
+ENTRY = dict(iterations=1000, prune_iter=100, grow_iter=500, stop=300, warmup=100, qat=200)
+
+
+@pytest.mark.cuda
+def test_entry_points_on_the_card(card, tmp_path):
+    """On an 8-bit PNG of kodim01's render: the fit CLI (``train.txt`` in
+    the JAX CLI's format, B and C once a step, ``evaluate`` of its
+    ``gaussian_model`` repeating the logged PSNR, at least 20 dB); the same
+    fit through ``fit_image`` ``torch.equal`` to the CLI's model, stopped at
+    300 and resumed equal to it, and the completed run resumed to an empty
+    history; the quantize CLI warm-started from the fit, writing the
+    ``.gipb``, which ``decode.main`` (A) and ``backend='list_t'`` (B)
+    decode to the encoder's PSNR within 1e-4 dB; the eval CLI at cap 256 on
+    the fit's checkpoint within 1e-4 dB of ``evaluate``, with a
+    random-weight LPIPS within 1e-4 of the CPU's."""
+    import importlib
+    import json
+
+    from gaussianimage_plus_tpu_torch import decode as decode_cli
+    from gaussianimage_plus_tpu_torch.compress.bitstream import decode_bitstream
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.scripts import eval_kodak, train_quantize
+    from gaussianimage_plus_tpu_torch.scripts import train as train_cli
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+    from gaussianimage_plus_tpu_torch.train.metrics import psnr as psnr_fn
+    from gaussianimage_plus_tpu_torch.utils.checkpoint import load_checkpoint
+    from gaussianimage_plus_tpu_torch.utils.image_io import load_image, save_image
+
+    lp = importlib.import_module("gaussianimage_plus_tpu_torch.train.lpips")
+    E = ENTRY
+    kodak = tmp_path / "kodak"
+    save_image(_kodim01_target(card), kodak / "kodim01.png")
+    gt = torch.as_tensor(load_image(kodak / "kodim01.png"), device=card)
+    h, w = gt.shape[:2]
+    cfg = gi.GaussianConfig(H=h, W=w, max_num_points=5000)
+    assert gi.resolve_backend(cfg, card) == "list_t"
+    common = ["-d", str(kodak), "--num_images", "1", "--prune_iter", str(E["prune_iter"]),
+              "--num_points", str(FIT_POINTS), "--max_num_points", "5000"]
+
+    before = _launches()
+    fit_dir = train_cli.main([*common, "--iterations", str(E["iterations"]), "--grow_iter",
+                              str(E["grow_iter"]), "--log_every", "500", "--save_imgs",
+                              "--log_dir", str(tmp_path / "fit")])
+    n = _since(before)
+    assert n["c"] == E["iterations"] and n["b"] >= E["iterations"], n
+    lines = (fit_dir / "train.txt").read_text().splitlines()
+    assert len(lines) == 3 and json.loads(lines[0])["iterations"] == E["iterations"], lines
+    f = lines[1].split("\t")
+    assert f[:3] == ["kodim01", f"{h}x{w}", "PSNR"] and f[4:13:2] == [
+        "MS-SSIM", "Training", "Eval", "FPS", "gs_nums"] and lines[2].startswith("Average: PSNR:")
+    model, _ = load_checkpoint(fit_dir / "kodim01" / "gaussian_model", card)
+    assert f"{tr.evaluate(model, gt, cfg, n_renders=1)['psnr']:.4f}" == f[3]
+    assert float(f[3]) >= 20.0 and (fit_dir / "kodim01" / "render.png").is_file()
+
+    tcfg = tr.TrainConfig(iterations=E["iterations"], prune_iter=E["prune_iter"],
+                          grow_iter=E["grow_iter"])
+    fit = lambda **kw: tr.fit_image(gt, cfg, tcfg, FIT_POINTS, seed=FIT_SEED, device=card, **kw)
+    ck = tmp_path / "eval" / "kodim01"
+    full = fit()
+    assert _same_state(full.state, model), "fit_image differs from the fit CLI's gaussian_model"
+    fit(checkpoint_dir=str(ck), checkpoint_every=E["prune_iter"], stop_after_iter=E["stop"])
+    resumed = fit(checkpoint_dir=str(ck), resume=True)
+    assert torch.equal(resumed.history["psnr"], full.history["psnr"][E["stop"]:])
+    assert _same_state(resumed.state, full.state) and resumed.best_psnr == full.best_psnr
+    again = fit(checkpoint_dir=str(ck), resume=True)
+    assert _same_state(again.state, full.state) and again.history["psnr"].numel() == 0
+    assert again.train_time == 0.0
+
+    before = _launches()
+    q_dir, q_stats = train_quantize.main(
+        [*common, "--iterations", str(E["warmup"] + E["qat"]), "--warmup_iter", str(E["warmup"]),
+         "--model_path", str(fit_dir), "--write_bitstream", "--log_dir", str(tmp_path / "quant"),
+         "--log_every", str(E["prune_iter"])])
+    n = _since(before)
+    assert f"warm-start from {fit_dir / 'kodim01' / 'gaussian_model'}" in (
+        q_dir / "train.txt").read_text().splitlines()
+    q = q_stats["kodim01"]
+    assert all(np.isfinite(q[k]) for k in ("psnr", "ms_ssim", "bpp")) and n["c"] == 300, (q, n)
+    gipb = tmp_path / "quant" / "kodim01.gipb"
+    before = _launches()
+    decode_cli.main([str(gipb), "-o", str(tmp_path / "decoded.png")])
+    n_a = _since(before)["a"]
+    img_a, _ = decode_bitstream(gipb.read_bytes(), device=card)
+    before = _launches()
+    img_b, _ = decode_bitstream(gipb.read_bytes(), backend="list_t", device=card)
+    assert n_a > 0 and _since(before)["b"] > 0
+    for img in (img_a, img_b):
+        assert abs(float(psnr_fn(img, gt)) - q["psnr"]) <= 1e-4
+
+    npz = tmp_path / "lpips.npz"
+    lp.save_npz(str(npz), lp.random_params(torch.Generator().manual_seed(0)))
+    before = _launches()
+    rows = eval_kodak.main(["--dataset", str(kodak), "--ckpt_dir", str(tmp_path / "eval"),
+                            "--tile_cap", "256", "--max_num_points", "5000", "--lpips_weights",
+                            str(npz), "--out", str(tmp_path / "eval.json")])
+    assert len(rows) == 1 and _since(before)["a"] > 0, rows
+    best = tr.restore_best(load_checkpoint(ck / "fit_ckpt", card)[0])
+    cfg_cap = dataclasses.replace(cfg, tile_cap=256, raster_backend="pallas")
+    ev = tr.evaluate(best, gt, cfg_cap, n_renders=1, lpips_weights=str(npz))
+    with torch.no_grad():
+        img_e = gi.render(best, cfg_cap)
+    lpips_cpu = float(lp.lpips(img_e.cpu(), gt.cpu(), lp.params_from_npz(str(npz), "cpu")))
+    r = rows[0]
+    assert abs(r["psnr"] - ev["psnr"]) <= 1e-4, (r, ev)
+    assert np.isfinite(r["lpips"]) and abs(r["lpips"] - lpips_cpu) <= 1e-4
+    assert abs(ev["lpips"] - r["lpips"]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cholesky_adan_fit_on_the_card(card, tmp_path):
+    """The legacy Cholesky model with Adan at the fit CLI's remap (lr 1e-3,
+    no growth, no pruning; means drawn in atanh space over the image):
+    1000 steps through ``'auto'`` (B and C once a step) rise 3 dB; 100 steps
+    from one start through ``'auto'`` and ``'xla'`` within 0.05 dB; and the
+    fit CLI with ``--model_name GaussianImage_RS`` for 200 steps."""
+    import json
+
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.scripts import train as train_cli
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+    from gaussianimage_plus_tpu_torch.utils.image_io import save_image
+
+    gt = _kodim01_target(card)
+    cfg = gi.GaussianConfig(param="cholesky")
+    tcfg = tr.TrainConfig(iterations=1000, prune_iter=100, lr=1e-3, opt_type="adan",
+                          adaptive_add=False, prune=False)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(FIT_SEED)
+    init = gi.init_state(cfg, FIT_POINTS, gen)
+    u = torch.rand((cfg.max_num_points, 2), generator=gen, device=card)
+    init = init._replace(params=init.params._replace(
+        xyz=torch.atanh((2.0 * u - 1.0).clamp(-0.999, 0.999))))
+    before = _launches()
+    res = tr.fit_image(gt, cfg, tcfg, FIT_POINTS, seed=FIT_SEED, gaussians=init)
+    n = _since(before)
+    psnr = res.history["psnr"]
+    assert n["c"] == 1000 and n["b"] >= 1000, n
+    assert bool(torch.isfinite(psnr).all()) and res.best_psnr - float(psnr[0]) >= 3.0
+    ts0 = tr.init_train_state(cfg, tcfg, FIT_POINTS, gaussians=init)
+    g0 = ts0.gaussians
+    assert not _overflows(gi.project(g0.params, g0.active, g0.bound, cfg), cfg)
+    p = [tr.train_chunk(ts0, gt, dataclasses.replace(cfg, raster_backend=b), tcfg, 100, False,
+                        False)[1]["psnr"] for b in ("auto", "xla")]
+    assert float((p[0] - p[1]).abs().max()) <= AGREE_DB
+
+    save_image(gt, tmp_path / "kodak" / "kodim01.png")
+    before = _launches()
+    rs_dir = train_cli.main(["-d", str(tmp_path / "kodak"), "--num_images", "1", "--num_points",
+                             str(FIT_POINTS), "--max_num_points", "5000", "--model_name",
+                             "GaussianImage_RS", "--iterations", "200", "--log_every", "200",
+                             "--log_dir", str(tmp_path / "rs")])
+    lines = (rs_dir / "train.txt").read_text().splitlines()
+    args = json.loads(lines[0])
+    assert (args["opt_type"], args["lr"], args["prune"]) == ("adan", 0.001, False)
+    assert np.isfinite(float(lines[1].split("\t")[3])) and _since(before)["c"] == 200
+
+
+@pytest.fixture
+def nccl_group(card, tmp_path):
+    """A NCCL process group of one on the card."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0, world_size=1)
+    try:
+        yield card
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_fit_batch_in_a_nccl_group_of_one(nccl_group):
+    """``parallel.fit_batch`` of the renders of four landscape committed
+    states (``'auto'``: B + C; 2500 -> 5000 Gaussians, seeds 3047-3050, 300
+    steps, a prune every 50, the growth at 150): each image's history and
+    final train state ``torch.equal`` to its schedule run alone, eagerly,
+    with equal launches; each best PSNR 5 dB above its first step's."""
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.parallel import sharded as psh
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    card = nccl_group
+    targets = []
+    with torch.no_grad():
+        for path in sorted((ROOT / "results" / "repr_states_plain").glob("*.npz")):
+            state, cfg = _npz_state(path, card)
+            if len(targets) < 4 and (cfg.H, cfg.W) == (512, 768):
+                targets.append(gi.render(state, cfg))
+    targets = torch.stack(targets)
+    cfg = gi.GaussianConfig()
+    tcfg = tr.TrainConfig(iterations=300, prune_iter=50, grow_iter=150)
+    assert gi.resolve_backend(cfg, card) == "list_t"
+    seen = []
+    before = _launches()
+    tss = psh.fit_batch(targets, cfg, tcfg, FIT_POINTS, mesh=psh.make_mesh(), seed=FIT_SEED,
+                        progress=lambda it, m: seen.append({k: v.clone() for k, v in m.items()}),
+                        device=card)
+    graphed, before = _since(before), _launches()
+    for i, target in enumerate(targets):
+        ts = tr.init_train_state(cfg, tcfg, FIT_POINTS, seed=FIT_SEED + i, device=card)
+        for c, end in enumerate(range(50, 301, 50)):
+            ts, m = tr.train_chunk(ts, target, cfg, tcfg, 50, True, end == 150, end == 150)
+            for key in ("loss", "psnr", "n_pruned", "n_added"):
+                assert torch.equal(seen[c][key][i], m[key]), (i, end, key)
+        _assert_trees_equal(tss[i], ts, f"image {i}")
+    assert _since(before) == graphed and graphed["c"] == 4 * 300, graphed
+    rise = np.array([float(ts.best_psnr) for ts in tss]) - seen[0]["psnr"][:, 0].cpu().numpy()
+    assert bool((rise >= 5.0).all()), rise
+
+
+@pytest.mark.cuda
+def test_tile_sharded_paths_in_a_nccl_group_of_one(nccl_group):
+    """``make_tile_sharded_render`` in a world of one: 100 steps against
+    ``'xla'`` from one state within 0.05 dB; ``fit_image_tile_sharded`` (200
+    steps, a prune every 100, the growth at 100) rising 5 dB with no spread
+    between replicas; and the state of the 2040x1344 ``'pallas'`` + ``'hier'``
+    fit of ``FITS`` (20,000 rows) through one sharded render with
+    ``bin_method='hier'`` (band budget 4096) within 1e-5 of the unsharded
+    ``'xla'`` render (flat ``'top_k'`` bins), no band overflowing, its
+    gradient within 1e-4 of each column's max."""
+    from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
+    from gaussianimage_plus_tpu_torch.parallel import sharded as psh
+    from gaussianimage_plus_tpu_torch.train import trainer as tr
+
+    card = nccl_group
+    gt = _kodim01_target(card)
+    cfg = gi.GaussianConfig(raster_backend="xla")
+    mesh = psh.make_mesh(axis_names=("tile",))
+    render_fn = psh.make_tile_sharded_render(mesh, cfg, axis="tile")
+    tc = tr.TrainConfig(iterations=100, prune_iter=100)
+    ts0 = tr.init_train_state(cfg, tc, FIT_POINTS, seed=FIT_SEED + 10, device=card)
+    p_s = tr.train_chunk(ts0, gt, cfg, tc, 100, False, False, render_fn=render_fn)[1]["psnr"]
+    p_x = tr.train_chunk(ts0, gt, cfg, tc, 100, False, False)[1]["psnr"]
+    assert float((p_s - p_x).abs().max()) <= AGREE_DB
+    res = psh.fit_image_tile_sharded(gt, cfg, tr.TrainConfig(iterations=200, prune_iter=100,
+                                                             grow_iter=100),
+                                     FIT_POINTS, mesh=mesh, seed=FIT_SEED, device=card)
+    psnr = res.history["psnr"]
+    assert bool(torch.isfinite(psnr).all()) and res.best_psnr - float(psnr[0]) >= 5.0
+    assert psh.replica_spread((*res.state.params, res.state.active), mesh) == 0.0
+
+    target, cfg_fit, tcfg, points = _fit_case(card, "2040x1344 'pallas' + 'hier'")
+    state = tr.fit_image(target, cfg_fit, tcfg, points, seed=FIT_SEED, device=card).state
+    cfg2k = dataclasses.replace(cfg_fit, bin_method="hier", raster_backend="xla")
+    render_2k = psh.make_tile_sharded_render(mesh, cfg2k, axis="tile", super_cap=4096)
+
+    def render_grad(fn, cfg_):
+        params = gi.GaussianParams(*(p.detach().clone().requires_grad_(True) for p in state.params))
+        img = fn(state._replace(params=params), cfg_)
+        return img.detach(), torch.autograd.grad(torch.mean((img - target) ** 2), params)
+
+    img_s, g_s = render_grad(render_2k, cfg2k)
+    img_u, g_u = render_grad(gi.render, dataclasses.replace(cfg2k, bin_method="top_k"))
+    assert float((img_s - img_u).abs().max()) <= 1e-5 and render_2k.super_overflow() == 0
+    for a, b in zip(g_s, g_u):
+        assert bool(((a - b).abs().amax(0) <= 1e-4 * b.abs().amax(0)).all())
+
+
+@pytest.mark.cuda
+def test_3dgs_model_on_the_card(card):
+    """The legacy 3DGS model at 768x512 (5000 points, SH degree 3): 20 steps
+    on the card and on the CPU from one start within 0.05 dB at every step;
+    300 Adam steps on the card lower the loss and raise the PSNR."""
+    from gaussianimage_plus_tpu_torch.models import gaussian_3d as g3
+
+    gt = _kodim01_target(card)
+    cfg = g3.Gaussian3DConfig(H=512, W=768, num_points=5000, sh_degree=3)
+    p0 = g3.init_params_3d(cfg, torch.Generator(device=card).manual_seed(FIT_SEED))
+    _, m_card = g3.fit_image_3d(gt, cfg, iterations=20, params=p0)
+    _, m_cpu = g3.fit_image_3d(gt.cpu(), cfg, iterations=20,
+                               params=g3.Gaussian3DParams(*(x.cpu() for x in p0)))
+    gap = float((m_card["history"]["psnr"].cpu() - m_cpu["history"]["psnr"]).abs().max())
+    assert gap <= AGREE_DB, gap
+    _, m = g3.fit_image_3d(gt, cfg, iterations=300, params=p0)
+    loss, psnr = m["history"]["loss"].cpu(), m["history"]["psnr"].cpu()
+    assert bool(torch.isfinite(loss).all()) and loss[-1] < loss[0] and psnr[-1] > psnr[0]
+
+
+@pytest.mark.cuda
+def test_pixel_count_map_on_the_card(card):
+    """``pixel_count_map`` of kodim01's fitted state on the card against the
+    CPU's: at most 0.01% of the pixels differ."""
+    from gaussianimage_plus_tpu_torch.utils.visualize import pixel_count_map
+
+    state, cfg = _npz_state(KODIM01, card)
+    counts = pixel_count_map(state, cfg)
+    counts_cpu = pixel_count_map(_npz_state(KODIM01, "cpu")[0], cfg)
+    assert tuple(counts.shape) == (cfg.H, cfg.W)
+    assert float((counts.cpu() != counts_cpu).float().mean()) <= 1e-4
