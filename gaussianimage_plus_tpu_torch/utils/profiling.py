@@ -43,8 +43,8 @@ The spans and counters the port records (where, and what reads them:
 - ``decode``: ``compress.bitstream.decode_bitstream``, the root of a decode;
 - ``decode.parse``: ``deserialize_bitstream``, whole;
 - ``decode.entropy``: ``compress.entropy.decode_rans``, each rANS decode;
-- counter ``decode.uploads``: tensors ``deserialize_bitstream`` makes from
-  host arrays, one host-to-device copy each on the card;
+- counter ``decode.uploads``: ``deserialize_bitstream``'s host-to-device
+  copies, one a parse on the card (the staged buffer), none on the CPU;
 - ``decode.dequantize`` and ``decode.render``: ``compress.pipeline
   .decompress_wo_ec``, its dequantization and its render; on the card the
   binned decode is one ``decode.render`` around the copy of its input into

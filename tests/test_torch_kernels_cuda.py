@@ -46,6 +46,12 @@ never synchronises with the host; an input that requires grad decodes
 eagerly; and the benchmark's decode faults (``portbench/control.py``) fail
 ``rms_gap`` through the replays.
 
+The staged parse (``compress.bitstream.deserialize_bitstream``): on the card
+each of the 57 streams parses to the CPU parse's fields, bit for bit, with
+one upload; two parses back to back with no sync keep their own codes (the
+caching host allocator keeps a pinned block until its copy has run); a
+whole ``decode_bitstream`` never synchronises with the host.
+
 The main paths on the card, from the committed fixtures: each of the 57
 streams decoded three ways and each of the 48 fitted states rendered
 through every kernel route, agreeing with each other; the dense and sweep
@@ -1422,6 +1428,92 @@ def test_every_stream_decodes_on_the_card(card, path):
         psnr = 10 * np.log10(1.0 / max(float((d ** 2).mean()), 1e-20))
         assert psnr >= 80.0 and float(d.max()) <= 5e-3, (psnr, float(d.max()))
         assert float((d > ATOL).any(-1).float().mean()) <= 0.01
+
+
+def _parsed_tensors(dec):
+    """(name, tensor) of every tensor field of a ``DecodedBitstream``."""
+    out = []
+
+    def walk(x, name):
+        if isinstance(x, torch.Tensor):
+            out.append((name, x))
+        elif isinstance(x, tuple):
+            for i, (f, y) in enumerate(zip(getattr(x, "_fields", range(len(x))), x)):
+                walk(y, f"{name}.{f}")
+
+    walk(dec, "dec")
+    return out
+
+
+def _assert_parse_equal(got, want, card):
+    a, b = _parsed_tensors(got), _parsed_tensors(want)
+    assert [k for k, _ in a] == [k for k, _ in b]
+    for (k, x), (_, y) in zip(a, b):
+        assert x.device.type == card.type and (x.dtype, x.shape) == (y.dtype, y.shape), k
+        assert torch.equal(x, y.to(card)), k
+    assert (got.H, got.W, got.bpp, got.qcfg) == (want.H, want.W, want.bpp, want.qcfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ALL_STREAMS, ids=[f"{p.parent.name}/{p.stem}" for p in ALL_STREAMS])
+def test_card_parse_equals_the_cpu_parse(card, path):
+    """The staged parse on the card (one pinned copy, every field a view of
+    one allocation) gives each of the 57 streams' fields with the CPU
+    parse's dtypes, shapes and values, and counts one upload."""
+    from gaussianimage_plus_tpu_torch.compress import bitstream as bs
+    from gaussianimage_plus_tpu_torch.utils import profiling
+
+    data = path.read_bytes()
+    profiling.reset()
+    try:
+        with profiling.recording():
+            got = bs.deserialize_bitstream(data, device=card)
+        uploads = profiling.counters().get("decode.uploads")
+    finally:
+        profiling.reset()
+    assert uploads == 1
+    _assert_parse_equal(got, bs.deserialize_bitstream(data, device="cpu"), card)
+
+
+@pytest.mark.cuda
+def test_back_to_back_card_parses_keep_their_codes(card):
+    """Two parses queued behind a long kernel, with no sync between them:
+    the first one's copy out of its pinned buffer has not run when the
+    second parse asks for one, so the caching host allocator hands the
+    second another block, and each parse's tensors keep its own stream's
+    codes."""
+    from gaussianimage_plus_tpu_torch.compress import bitstream as bs
+
+    first, second = (ROOT / f"results/bitstreams_r4/{k}.gipb" for k in ("kodim01", "kodim02"))
+    a, b = first.read_bytes(), second.read_bytes()
+    bs.deserialize_bitstream(a, device=card)            # warms the pinned blocks
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)                       # tens of ms ahead of the first copy
+    got_a = bs.deserialize_bitstream(a, device=card)
+    got_b = bs.deserialize_bitstream(b, device=card)
+    torch.cuda.synchronize()
+    _assert_parse_equal(got_a, bs.deserialize_bitstream(a, device="cpu"), card)
+    _assert_parse_equal(got_b, bs.deserialize_bitstream(b, device="cpu"), card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bitstreams_r4/kodim01", "bitstreams_vq_r5/kodim01"],
+                         ids=["lsq", "vq"])
+def test_decode_bitstream_never_syncs(card, name):
+    """After a warm call, a whole ``decode_bitstream`` (the parse and its
+    one non-blocking copy from pinned memory, the graph replay) runs under
+    ``set_sync_debug_mode("error")`` and gives the warm call's image."""
+    from gaussianimage_plus_tpu_torch.compress import bitstream as bs
+
+    data = (ROOT / "results" / f"{name}.gipb").read_bytes()
+    want, _ = bs.decode_bitstream(data, device=card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img, _ = bs.decode_bitstream(data, device=card)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(img, want)
 
 
 @pytest.mark.cuda

@@ -7,8 +7,8 @@ case on the card.
   stretches do: the decode records ``decode`` around ``decode.parse``
   (around each ``decode.entropy``), ``decode.dequantize`` and
   ``decode.render`` (around ``render.bin``); every span shares the root's id
-  and nests in time inside its parent; ``decode.uploads`` is 14 on an LSQ
-  stream and 16 on a VQ one (two codebooks).
+  and nests in time inside its parent; on the CPU the parse makes no
+  host-to-device copy, so no ``decode.uploads`` is counted.
 - Clock: each span's profiler range agrees with its stored interval
   (median under 50 us, every span under 1 ms).
 - The ring drops its oldest span past ``RING`` and counts the drop;
@@ -126,13 +126,13 @@ def test_decode_off_records_nothing():
     assert profiling.dropped() == 0
 
 
-@pytest.mark.parametrize("stream, uploads", [(LSQ, 14), (VQ, 16)], ids=["lsq", "vq"])
-def test_decode_spans_under_the_profiler(stream, uploads):
+@pytest.mark.parametrize("stream", [LSQ, VQ], ids=["lsq", "vq"])
+def test_decode_spans_under_the_profiler(stream):
     _, prof = _profiled(lambda: decode_bitstream(stream.read_bytes(), device="cpu"))
     spans = profiling.spans()
     assert _tree(spans) == DECODE_TREE
     _assert_nested(spans)
-    assert profiling.counters() == {"decode.uploads": uploads}
+    assert profiling.counters() == {}
     gaps = _clock_gaps_us(spans, prof)
     assert len(gaps) == len(spans)
     assert statistics.median(gaps) < 50 and max(gaps) < 1000, gaps
