@@ -84,9 +84,10 @@ def encode_rans(messages: np.ndarray, counts: np.ndarray) -> np.ndarray:
     cts = np.ascontiguousarray(counts, dtype=np.uint32)
     cap = 2 * msgs.size + 16
     out = np.empty(cap, dtype=np.uint16)
-    n = _lib().rans_encode(_ptr(msgs, ctypes.c_int32), msgs.size,
-                           _ptr(cts, ctypes.c_uint32), cts.size,
-                           _ptr(out, ctypes.c_uint16), cap)
+    with span("encode.entropy"):
+        n = _lib().rans_encode(_ptr(msgs, ctypes.c_int32), msgs.size,
+                               _ptr(cts, ctypes.c_uint32), cts.size,
+                               _ptr(out, ctypes.c_uint16), cap)
     if n < 0:
         raise ValueError("rans_encode failed (capacity or bad symbol)")
     return out[:n].copy()

@@ -342,7 +342,8 @@ def _qat_runner(gt: torch.Tensor, cfg: GaussianConfig, qcfg: QuantConfig, model_
                 chunk: int, warm_on_clone: bool = False) -> ChunkRunner:
     """The chunk runner of ``quant_train_macro_chunk``: carry ``(state,
     model_opt_state, bundle, best)``, outputs per chunk ``(loss, psnr)``,
-    each [chunk]. A graph keeps its own copy of ``gt``."""
+    each [chunk]. A graph keeps its own copy of ``gt``. Its warm-up chunk
+    and capture record ``qat.warm_chunk`` and ``qat.capture``."""
     graph = captures(cfg, gt.device)
     gt = gt.clone() if graph else gt
 
@@ -351,7 +352,7 @@ def _qat_runner(gt: torch.Tensor, cfg: GaussianConfig, qcfg: QuantConfig, model_
                                                   best=carry[3])
         return (state, mos, bundle, m["best"]), (m["loss"], m["psnr"])
 
-    return ChunkRunner(fn, graph, warm_on_clone)
+    return ChunkRunner(fn, graph, warm_on_clone, spans="qat")
 
 
 def _qat_macro(runner: ChunkRunner, state, model_opt_state, bundle, n_chunks: int, best=None):

@@ -39,6 +39,7 @@ from ..train.metrics import psnr as psnr_fn
 from ..train.optim import make_adam
 from ..train.trainer import (TrainConfig, _fit_runner, _macro, init_train_state,
                              restore_best, seconds_per_call)
+from ..utils.profiling import span
 from .bitstream import decode_bitstream, serialize_bitstream
 from .entropy import gaussian_global_bits
 from .pipeline import (QuantConfig, QuantizerBundle, analysis_wo_ec, compress_wo_ec,
@@ -63,60 +64,63 @@ def fit_image_quantized(gt, cfg: GaussianConfig, tcfg: TrainConfig, qcfg: QuantC
     (the card unless ``device='cpu'``; ``init_state``'s device when given).
     ``init_state`` warm-starts the warmup from a trained representation, as
     the reference loads its checkpoint and still runs the warmup on top with
-    a fresh optimizer (:53-69, :124-129)."""
-    chunk = tcfg.prune_iter
-    if warmup_iter % chunk or tcfg.iterations % chunk:
-        raise ValueError("warmup_iter and iterations must divide by prune_iter")
-    dev = init_state.active.device if init_state is not None else resolve_device(device)
-    gt = torch.as_tensor(np.asarray(gt) if not isinstance(gt, torch.Tensor) else gt,
-                         dtype=torch.float32).to(dev)
-    say = logger.write if logger is not None else print
-    ts = init_train_state(cfg, tcfg, num_points, seed, gaussians=init_state, device=dev)
-    t0 = time.perf_counter()
-    # the last growth before the warmup ends fills every free slot
-    last_grow = (warmup_iter - 1) // tcfg.grow_iter * tcfg.grow_iter
-    ends = [e for e in range(chunk, warmup_iter + 1, chunk)
-            if e == warmup_iter or (tcfg.adaptive_add and e % tcfg.grow_iter == 0)
-            or (log_every and e % log_every == 0)]
-    runner = _fit_runner(gt, cfg, tcfg, chunk, tcfg.prune)
-    warm = []
-    for begin, end in zip([0] + ends[:-1], ends):
-        do_grow = tcfg.adaptive_add and end % tcfg.grow_iter == 0 and end < warmup_iter
-        ts, m = _macro(runner, ts, gt, cfg, tcfg, (end - begin) // chunk, do_grow,
-                       do_grow and end == last_grow)
-        warm.append(m["psnr"])
-        if log_every and end % log_every == 0:
-            say(f"warmup {end}: psnr {float(m['psnr'][-1]):.3f} best {float(ts.best_psnr):.3f} "
-                f"n {int(ts.gaussians.num_active)}")
-    del runner      # the warmup's graph, before the QAT's capture
+    a fresh optimizer (:53-69, :124-129). The whole call records the span
+    ``qat``."""
+    with span("qat"):
+        chunk = tcfg.prune_iter
+        if warmup_iter % chunk or tcfg.iterations % chunk:
+            raise ValueError("warmup_iter and iterations must divide by prune_iter")
+        dev = init_state.active.device if init_state is not None else resolve_device(device)
+        gt = torch.as_tensor(np.asarray(gt) if not isinstance(gt, torch.Tensor) else gt,
+                             dtype=torch.float32).to(dev)
+        say = logger.write if logger is not None else print
+        ts = init_train_state(cfg, tcfg, num_points, seed, gaussians=init_state, device=dev)
+        t0 = time.perf_counter()
+        # the last growth before the warmup ends fills every free slot
+        last_grow = (warmup_iter - 1) // tcfg.grow_iter * tcfg.grow_iter
+        ends = [e for e in range(chunk, warmup_iter + 1, chunk)
+                if e == warmup_iter or (tcfg.adaptive_add and e % tcfg.grow_iter == 0)
+                or (log_every and e % log_every == 0)]
+        runner = _fit_runner(gt, cfg, tcfg, chunk, tcfg.prune)
+        warm = []
+        for begin, end in zip([0] + ends[:-1], ends):
+            do_grow = tcfg.adaptive_add and end % tcfg.grow_iter == 0 and end < warmup_iter
+            ts, m = _macro(runner, ts, gt, cfg, tcfg, (end - begin) // chunk, do_grow,
+                           do_grow and end == last_grow)
+            warm.append(m["psnr"])
+            if log_every and end % log_every == 0:
+                say(f"warmup {end}: psnr {float(m['psnr'][-1]):.3f} best {float(ts.best_psnr):.3f} "
+                    f"n {int(ts.gaussians.num_active)}")
+        del runner      # the warmup's graph, before the QAT's capture
 
-    state = restore_best(ts)
-    model_lr = tcfg.lr * tcfg.lr_gamma ** (warmup_iter // tcfg.lr_step_size)
-    mos = make_adam(model_lr, tcfg.lr_step_size, tcfg.lr_gamma).init(state.params)
-    bundle = init_quantizers(state, cfg, qcfg, generator=ts.generator)
-    ends = [e for e in range(warmup_iter + chunk, tcfg.iterations + 1, chunk)
-            if e == tcfg.iterations or (log_every and e % log_every == 0)]
-    runner = _qat_runner(gt, cfg, qcfg, model_lr, chunk)
-    best, psnrs, losses = None, [], []
-    for begin, end in zip([warmup_iter] + ends[:-1], ends):
-        state, mos, bundle, m = _qat_macro(runner, state, mos, bundle, (end - begin) // chunk,
-                                           best)
-        best = m["best"]
-        psnrs.append(m["psnr"])
-        losses.append(m["loss"])
-        if log_every and end % log_every == 0:
-            say(f"quant {end}: psnr {float(m['psnr'][-1]):.3f} best {float(best[0]):.3f}")
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    train_time = time.perf_counter() - t0
-    cat = lambda xs: torch.cat(xs) if xs else torch.zeros((0,), device=dev)
-    metrics = {"warmup_psnr": cat(warm), "psnr": cat(psnrs), "loss": cat(losses)}
-    if best is None:
-        return QuantFitResult(state, bundle, -float("inf"), train_time, metrics)
-    bxy, bcov, bcol = best[2]
-    return QuantFitResult(state=state._replace(params=best[1]),
-                          bundle=bundle._replace(xy=bxy, cov=bcov, color=bcol, color_vq=best[3]),
-                          best_psnr=float(best[0]), train_time=train_time, metrics=metrics)
+        state = restore_best(ts)
+        model_lr = tcfg.lr * tcfg.lr_gamma ** (warmup_iter // tcfg.lr_step_size)
+        mos = make_adam(model_lr, tcfg.lr_step_size, tcfg.lr_gamma).init(state.params)
+        bundle = init_quantizers(state, cfg, qcfg, generator=ts.generator)
+        ends = [e for e in range(warmup_iter + chunk, tcfg.iterations + 1, chunk)
+                if e == tcfg.iterations or (log_every and e % log_every == 0)]
+        runner = _qat_runner(gt, cfg, qcfg, model_lr, chunk)
+        best, psnrs, losses = None, [], []
+        for begin, end in zip([warmup_iter] + ends[:-1], ends):
+            state, mos, bundle, m = _qat_macro(runner, state, mos, bundle, (end - begin) // chunk,
+                                               best)
+            best = m["best"]
+            psnrs.append(m["psnr"])
+            losses.append(m["loss"])
+            if log_every and end % log_every == 0:
+                say(f"quant {end}: psnr {float(m['psnr'][-1]):.3f} best {float(best[0]):.3f}")
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        train_time = time.perf_counter() - t0
+        cat = lambda xs: torch.cat(xs) if xs else torch.zeros((0,), device=dev)
+        metrics = {"warmup_psnr": cat(warm), "psnr": cat(psnrs), "loss": cat(losses)}
+        if best is None:
+            return QuantFitResult(state, bundle, -float("inf"), train_time, metrics)
+        bxy, bcov, bcol = best[2]
+        return QuantFitResult(state=state._replace(params=best[1]),
+                              bundle=bundle._replace(xy=bxy, cov=bcov, color=bcol,
+                                                     color_vq=best[3]),
+                              best_psnr=float(best[0]), train_time=train_time, metrics=metrics)
 
 
 def encode_decode_eval(res_state: GaussianState, bundle: QuantizerBundle, gt,
@@ -133,13 +137,29 @@ def encode_decode_eval(res_state: GaussianState, bundle: QuantizerBundle, gt,
     bytes back and report ``bpp_stream`` (the file's bits per pixel) and
     ``stream_psnr``. ``stream_order='morton'`` lays the stream out in the
     Morton order of the tiles (the same contributions, summed in another
-    order); ``'id'`` keeps the training order."""
+    order); ``'id'`` keeps the training order.
+
+    The encoder's host work, one stretch before the decode and the metrics,
+    records the span ``encode``: the integer codes (``compress_wo_ec``), the
+    rANS rates of ``bpp_wc``, and with ``write_bitstream`` the serialization
+    and the file write."""
     if stream_order not in ("id", "morton"):
         raise ValueError(f"unknown stream_order {stream_order!r}")
     dev = res_state.active.device
     gt = torch.as_tensor(np.asarray(gt) if not isinstance(gt, torch.Tensor) else gt,
                          dtype=torch.float32).to(dev)
-    enc = compress_wo_ec(bundle, res_state, cfg, qcfg)
+    hw = cfg.H * cfg.W
+    with span("encode"):
+        enc = compress_wo_ec(bundle, res_state, cfg, qcfg)
+        active = enc.active.cpu().numpy()
+        cov_wc = gaussian_global_bits(enc.quant_cov.cpu().numpy()[active]) / hw
+        color_wc = gaussian_global_bits(enc.color_codes.cpu().numpy()[active]) / hw
+        data = None
+        if write_bitstream is not None:
+            enc_s = enc if stream_order == "id" else morton_reorder(enc, res_state.bound, cfg)[0]
+            data = serialize_bitstream(bundle, enc_s, cfg, qcfg)
+            with open(write_bitstream, "wb") as f:
+                f.write(data)
     with torch.no_grad():
         out = decompress_wo_ec(bundle, enc, res_state.bound, cfg, qcfg)
         stats = analysis_wo_ec(enc, cfg, qcfg, bundle)
@@ -148,17 +168,11 @@ def encode_decode_eval(res_state: GaussianState, bundle: QuantizerBundle, gt,
             dt = seconds_per_call(
                 lambda: decompress_wo_ec(bundle, enc, res_state.bound, cfg, qcfg), n_renders, dev)
             stats.update(decode_full_time=dt, decode_full_fps=1.0 / dt)
-    active = enc.active.cpu().numpy()
-    hw = cfg.H * cfg.W
-    stats["cholesky_bpp_wc"] = gaussian_global_bits(enc.quant_cov.cpu().numpy()[active]) / hw
-    stats["feature_dc_bpp_wc"] = gaussian_global_bits(enc.color_codes.cpu().numpy()[active]) / hw
+    stats["cholesky_bpp_wc"] = cov_wc
+    stats["feature_dc_bpp_wc"] = color_wc
     stats["bpp_wc"] = (stats["position_bpp"] + stats["cholesky_bpp_wc"]
                        + stats["feature_dc_bpp_wc"])
-    if write_bitstream is not None:
-        enc_s = enc if stream_order == "id" else morton_reorder(enc, res_state.bound, cfg)[0]
-        data = serialize_bitstream(bundle, enc_s, cfg, qcfg)
-        with open(write_bitstream, "wb") as f:
-            f.write(data)
+    if data is not None:
         with torch.no_grad():
             img_rt, dec = decode_bitstream(data, device=dev)
             stats.update(bpp_stream=dec.bpp, stream_psnr=float(psnr_fn(img_rt, gt)))

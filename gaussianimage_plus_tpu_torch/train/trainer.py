@@ -361,12 +361,15 @@ class ChunkRunner:
     stream (PyTorch's warm-up before a capture): the first chunk of the
     first run, so that no step is thrown away, or with ``warm_on_clone`` a
     chunk on a clone of the carry, which is dropped. Without ``graph``
-    every chunk runs eagerly."""
+    every chunk runs eagerly. The warm-up chunk and the capture record the
+    spans ``<spans>.warm_chunk`` and ``<spans>.capture``."""
 
-    def __init__(self, fn: Callable, graph: bool, warm_on_clone: bool = False):
+    def __init__(self, fn: Callable, graph: bool, warm_on_clone: bool = False,
+                 spans: str = "fit"):
         self.fn, self.use_graph, self.warm_on_clone = fn, graph, warm_on_clone
         self.graph: Optional[ChunkGraph] = None
         self.warm = False
+        self._warm_span, self._capture_span = f"{spans}.warm_chunk", f"{spans}.capture"
 
     def run(self, carry, n: int):
         eager = []
@@ -379,7 +382,7 @@ class ChunkRunner:
             dev = _tensors(carry)[0].device
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
-            with span("fit.warm_chunk"), torch.cuda.stream(side):
+            with span(self._warm_span), torch.cuda.stream(side):
                 if self.warm_on_clone:
                     self.fn(_clone(carry))
                 else:
@@ -391,7 +394,7 @@ class ChunkRunner:
         hist = [torch.stack(o) for o in zip(*eager)] if eager else None
         if left:
             if self.graph is None:
-                with span("fit.capture"):
+                with span(self._capture_span):
                     self.graph = ChunkGraph(self.fn, carry)
             g = self.graph
             g.load(carry)

@@ -57,8 +57,18 @@ The spans and counters the port records (where, and what reads them:
   step), where it runs eagerly: a graph replay records none;
 - ``fit``: ``train.trainer.fit_image``, whole, the root of a fit;
 - ``fit.warm_chunk`` and ``fit.capture``: ``ChunkRunner.run``'s eager chunk
-  before the capture and its ``ChunkGraph`` construction;
+  before the capture and its ``ChunkGraph`` construction, for the fit's
+  runner (``train.trainer._fit_runner``, also the warmup of
+  ``fit_image_quantized``);
 - ``fit.grow``: ``train.trainer._grow_ts``, a growth;
+- ``qat``: ``compress.trainer.fit_image_quantized``, whole, the root of a
+  coding job's training (warmup and QAT);
+- ``qat.warm_chunk`` and ``qat.capture``: the same two stretches of the QAT
+  runner (``compress.pipeline._qat_runner``);
+- ``encode``: ``compress.trainer.encode_decode_eval``'s encoder, the root of
+  an encode: ``compress_wo_ec``, the rANS rates of ``bpp_wc``, and the
+  ``.gipb``'s ``serialize_bitstream`` and file write;
+- ``encode.entropy``: ``compress.entropy.encode_rans``, each rANS encode;
 - device counters ``lists.tiles``, ``lists.overflow_tiles``,
   ``lists.member_chunks`` and ``lists.visited_chunks``: per enumeration of
   ``kernels.raster_list.member_lists``, the tiles, those whose member chunks

@@ -16,6 +16,11 @@ case on the card.
   span that opened while recording was off stays unrecorded.
 - A tiny CPU ``fit_image`` with one growth records ``fit`` around
   ``fit.grow``.
+- A tiny CPU coding job (``fit_image_quantized``, then
+  ``encode_decode_eval`` writing a ``.gipb``) records the root ``qat`` and
+  the root ``encode`` around each ``encode.entropy`` (two rANS rates and the
+  stream's four candidate codings), and nothing with recording off; the CPU
+  runs its chunks eagerly, so no ``*.warm_chunk`` or ``*.capture``.
 - The card (``-m cuda``): a graphed ``fit_image`` under the profiler records
   ``fit.warm_chunk`` and ``fit.capture`` once, under its ``fit`` root, its
   capture succeeds and its history equals an unprofiled fit's; the clock
@@ -23,7 +28,11 @@ case on the card.
   width 8, some tiles past it) captured with recording off and on: the eager
   chunk under recording counts every enumeration (``lists.*``), the
   captures count nothing, the two graphs launch the same kernels and replay
-  to the same outputs, and a replay under recording counts nothing.
+  to the same outputs, and a replay under recording counts nothing. A
+  graphed coding job records, under its ``qat`` root, the warmup runner's
+  ``fit.warm_chunk`` and ``fit.capture`` and the QAT runner's
+  ``qat.warm_chunk`` and ``qat.capture``, once each, and its losses and
+  stream equal an unrecorded job's.
 
 This file imports no JAX, so the card case runs on the card with
 ``python -m pytest --noconftest tests/test_torch_tracing.py -m cuda``.
@@ -39,6 +48,8 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from gaussianimage_plus_tpu_torch.compress import pipeline as pl
+from gaussianimage_plus_tpu_torch.compress import trainer as ctr
 from gaussianimage_plus_tpu_torch.compress.bitstream import decode_bitstream
 from gaussianimage_plus_tpu_torch.models import gaussian_image as gi
 from gaussianimage_plus_tpu_torch.train import trainer as tr
@@ -182,6 +193,36 @@ def test_fit_records_fit_around_its_growth():
     _assert_nested(spans)
 
 
+def _coding_job(path, dev="cpu", size=(32, 48), warm=20, qat=20, chunk=10):
+    """A coding job from random rows: (QAT losses, the stream's bytes)."""
+    H, W = size
+    cfg = gi.GaussianConfig(H=H, W=W, max_num_points=H * W // 16)
+    tcfg = tr.TrainConfig(iterations=warm + qat, prune_iter=chunk, grow_iter=10 ** 6, lr=0.02)
+    gt = torch.as_tensor(np.random.default_rng(7).uniform(0, 1, (H, W, 3)).astype(np.float32),
+                         device=dev)
+    qcfg = pl.QuantConfig()
+    res = ctr.fit_image_quantized(gt, cfg, tcfg, qcfg, cfg.max_num_points // 2,
+                                  warmup_iter=warm, seed=5, device=dev)
+    ctr.encode_decode_eval(res.state, res.bundle, gt, cfg, qcfg, write_bitstream=str(path))
+    return res.metrics["loss"], Path(path).read_bytes()
+
+
+def test_coding_job_records_qat_and_encode(tmp_path):
+    _coding_job(tmp_path / "off.gipb")
+    assert profiling.spans() == []
+    with profiling.recording():
+        _coding_job(tmp_path / "on.gipb")
+    spans = profiling.spans()
+    by_id = {s.id: s for s in spans}
+    roots = [s.name for s in spans if s.parent == 0]
+    assert roots.count("qat") == 1 and roots.count("encode") == 1
+    (encode,) = [s for s in spans if s.name == "encode"]
+    entropy = [s for s in spans if s.name == "encode.entropy"]
+    assert len(entropy) == 6 and all(by_id[s.parent] is encode for s in entropy)
+    assert not [s for s in spans if s.name.endswith((".warm_chunk", ".capture"))]
+    assert (tmp_path / "off.gipb").read_bytes() == (tmp_path / "on.gipb").read_bytes()
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -269,3 +310,25 @@ def test_graphed_2k_chunk_is_the_same_with_counters_on(card):
         launches[on] = graph._launches
     assert launches[True] == launches[False] and sum(launches[False]) > 0
     assert all(torch.equal(a, b) for a, b in zip(outs[False], outs[True], strict=True))
+
+
+@pytest.mark.cuda
+def test_graphed_coding_job_spans_on_the_card(card, tmp_path):
+    """A coding job at 256x256 (200 warmup and 200 QAT steps, graphed):
+    under its ``qat`` root the warmup's and the QAT's warm-up chunk and
+    capture, once each, in that order; the same losses and stream as the
+    job unrecorded."""
+    kw = dict(dev=card, size=(256, 256), warm=200, qat=200, chunk=100)
+    assert tr.captures(gi.GaussianConfig(H=256, W=256), card)
+    plain = _coding_job(tmp_path / "off.gipb", **kw)
+    assert profiling.spans() == []
+    with profiling.recording():
+        got = _coding_job(tmp_path / "on.gipb", **kw)
+    assert torch.equal(got[0], plain[0]) and got[1] == plain[1]
+    spans = profiling.spans()
+    (qat,) = [s for s in spans if s.name == "qat"]
+    under = sorted((s for s in spans if s.root == qat.id and s.parent == qat.id),
+                   key=lambda s: s.start_ns)
+    assert [s.name for s in under] == ["fit.warm_chunk", "fit.capture", "qat.warm_chunk",
+                                       "qat.capture"]
+    assert [s.name for s in spans if s.parent == 0].count("encode") == 1
